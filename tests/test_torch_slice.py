@@ -1,0 +1,116 @@
+"""The monocular slice end to end: the port's System against the JAX
+System on the same synthetic sequence, with the JAX initializer's RANSAC
+draws fed to the port (frames_per_sync=1, abortable_ba=False: the
+synchronous configuration the port implements)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from weiner_slamit_v2_tpu import config as jconfig
+from weiner_slamit_v2_tpu.frontend.initializer import N_RANSAC, SAMPLE_SIZE
+from weiner_slamit_v2_tpu.geometry.camera import Camera as JCamera
+from weiner_slamit_v2_tpu.io.datasets import make_synthetic_sequence as j_make_sequence
+from weiner_slamit_v2_tpu.io.evaluation import ate_rmse
+from weiner_slamit_v2_tpu.tracking.system import System as JSystem
+from weiner_slamit_v2_torch import config as tconfig
+from weiner_slamit_v2_torch.geometry.camera import Camera
+from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+from weiner_slamit_v2_torch.tracking.system import System
+
+torch.set_num_threads(1)
+
+H, W = 240, 320
+K = np.array([[300.0, 0, 159.5], [0, 300.0, 119.5], [0, 0, 1]], np.float32)
+SEQ = dict(n_frames=24, h=H, w=W, seed=11, motion="orbit", K=K)
+
+
+def small_config(mod):
+    """tests/test_tracking.py's small_config on the synchronous slice."""
+    return mod.SlamConfig(
+        orb=mod.OrbConfig(n_features=256),
+        camera=mod.CameraConfig(fx=300, fy=300, cx=159.5, cy=119.5, k1=0, k2=0, p1=0, p2=0,
+                                k3=0, width=W, height=H),
+        capacity=mod.MapCapacityConfig(max_keyframes=32, max_map_points=2048,
+                                       max_obs_per_point=16, local_ba_window=8,
+                                       local_ba_points=512),
+        tracking=mod.TrackingConfig(frames_per_sync=1, abortable_ba=False),
+    )
+
+
+def jax_draws(seed):
+    """The JAX tracker's RANSAC draws: PRNGKey(cfg.seed + frame_id)."""
+    def draws(frame_id, n_valid):
+        d = jax.random.randint(jax.random.PRNGKey(seed + frame_id), (N_RANSAC, SAMPLE_SIZE),
+                               0, max(int(n_valid), 1))
+        return torch.from_numpy(np.asarray(d))
+    return draws
+
+
+@pytest.fixture(scope="module")
+def runs():
+    seq = j_make_sequence(**SEQ)
+    cfg_j = small_config(jconfig)
+    js = JSystem(cfg_j, JCamera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H))
+    j_states = [js.track_monocular(f.image, f.timestamp).state for f in seq.frames]
+    js.finish()
+
+    cfg_t = small_config(tconfig)
+    ts = System(cfg_t, Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H))
+    ts.tracker.init_draws = jax_draws(cfg_t.seed)
+    t_states = [ts.track_monocular(f.image, f.timestamp).state for f in seq.frames]
+    ts.finish()
+    return seq, (js, j_states), (ts, t_states)
+
+
+def test_synthetic_images_match():
+    a, b = j_make_sequence(**SEQ), make_synthetic_sequence(**SEQ)
+    np.testing.assert_allclose(b.gt_Twc, a.gt_Twc, atol=1e-6)
+    for fa, fb in zip(a.frames, b.frames):
+        np.testing.assert_allclose(fb.image, fa.image, rtol=0, atol=1e-3)
+
+
+def test_same_initialization_frame_and_no_loss(runs):
+    _, (_, js), (_, ts) = runs
+    init_j = js.index("OK")
+    assert ts.index("OK") == init_j
+    assert all(s == "OK" for s in js[init_j:])
+    assert all(s == "OK" for s in ts[init_j:])
+
+
+def test_keyframe_counts_close(runs):
+    _, (jsys, _), (tsys, _) = runs
+    assert abs(tsys.tracker.n_kf_host - jsys.tracker.n_kf_host) <= 2
+    assert abs(tsys.n_keyframes() - jsys.n_keyframes()) <= 2
+    assert tsys.mapping_passes >= 3
+
+
+def test_trajectory_accuracy_close(runs):
+    seq, (jsys, _), (tsys, _) = runs
+    ates = []
+    for sys_ in (jsys, tsys):
+        _, Twc = sys_.tracker.trajectory_Twc()
+        ates.append(ate_rmse(Twc, seq.gt_Twc[-len(Twc):]))
+    assert ates[0] < 0.06 and ates[1] < 0.06, ates
+    assert abs(ates[1] - ates[0]) < 0.02, ates
+
+
+def test_trajectory_export(runs, tmp_path):
+    _, _, (tsys, _) = runs
+    p = tmp_path / "traj.txt"
+    tsys.save_trajectory_tum(str(p))
+    lines = [l for l in open(p) if l.strip()]
+    assert len(lines) == len(tsys.tracker.trajectory) and len(lines[0].split()) == 8
+    kf = tmp_path / "kf.txt"
+    tsys.save_keyframe_trajectory_tum(str(kf))
+    assert len(open(kf).readlines()) == tsys.n_keyframes()
+
+
+def test_unported_configurations_raise():
+    cfg = small_config(tconfig)
+    cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
+    with pytest.raises(NotImplementedError, match="A.8"):
+        System(cfg.replace(tracking=tconfig.TrackingConfig(abortable_ba=True)), cam)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam)

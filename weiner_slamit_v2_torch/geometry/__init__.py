@@ -1,0 +1,1 @@
+"""geometry (PyTorch port of weiner_slamit_v2_tpu/geometry)."""

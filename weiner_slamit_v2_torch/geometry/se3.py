@@ -1,0 +1,114 @@
+"""SE(3) rigid-transform operations (port of weiner_slamit_v2_tpu/geometry/se3.py).
+
+Conventions are the reference's: a pose is a 4x4 world->camera matrix
+``Tcw``; tangent vectors are ``[upsilon, omega]`` (g2o SE3Quat order); every
+function broadcasts over leading batch dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def _eye(n, like: torch.Tensor, shape=()) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device).expand(*shape, n, n)
+
+
+def hat(omega: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of a 3-vector (batched)."""
+    z = torch.zeros_like(omega[..., 0])
+    w0, w1, w2 = omega[..., 0], omega[..., 1], omega[..., 2]
+    return torch.stack(
+        [
+            torch.stack([z, -w2, w1], -1),
+            torch.stack([w2, z, -w0], -1),
+            torch.stack([-w1, w0, z], -1),
+        ],
+        -2,
+    )
+
+
+def _coeffs(omega: torch.Tensor):
+    theta2 = (omega * omega).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    big = theta2 > _EPS
+    a = torch.where(big, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
+    b = torch.where(big, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
+    c = torch.where(
+        big, (theta - torch.sin(theta)) / (theta2 * theta), 1.0 / 6.0 - theta2 / 120.0
+    )
+    return a, b, c
+
+
+def exp(xi: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential: [upsilon, omega] -> 4x4 (batched)."""
+    upsilon, omega = xi[..., :3], xi[..., 3:]
+    a, b, c = _coeffs(omega)
+    K = hat(omega)
+    KK = K @ K
+    eye = _eye(3, xi, K.shape[:-2])
+    R = eye + a[..., None, None] * K + b[..., None, None] * KK
+    V = eye + b[..., None, None] * K + c[..., None, None] * KK
+    return from_rt(R, (V @ upsilon[..., None])[..., 0])
+
+
+def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble 4x4 from rotation (...,3,3) and translation (...,3)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    top = torch.cat([R.expand(*batch, 3, 3), t.expand(*batch, 3)[..., None]], -1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    return torch.cat([top, bottom.expand(*batch, 1, 4)], -2)
+
+
+def inv(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid transform (batched)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return from_rt(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def apply(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Transform points: (...,4,4) x (...,3) -> (...,3)."""
+    return (T[..., :3, :3] @ X[..., None])[..., 0] + T[..., :3, 3]
+
+
+def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Left-multiplicative update exp(xi) @ T (g2o VertexSE3Expmap::oplusImpl)."""
+    return exp(xi) @ T
+
+
+def orthonormalize(T: torch.Tensor, iters: int = 2) -> torch.Tensor:
+    """Project the rotation block back onto SO(3) (Newton-Schulz)."""
+    R = T[..., :3, :3]
+    eye = _eye(3, T, R.shape[:-2])
+    for _ in range(iters):
+        R = 0.5 * R @ (3.0 * eye - R.transpose(-1, -2) @ R)
+    return from_rt(R, T[..., :3, 3])
+
+
+def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion [qx, qy, qz, qw] (Shepperd)."""
+    m = [[R[..., i, j] for j in range(3)] for i in range(3)]
+    m00, m01, m02 = m[0]
+    m10, m11, m12 = m[1]
+    m20, m21, m22 = m[2]
+    tr = m00 + m11 + m22
+
+    def cand(diag, build):
+        q = torch.sqrt(torch.clamp(diag, min=_EPS)) * 0.5
+        return build(q, 0.25 / torch.clamp(q, min=_EPS))
+
+    c0 = cand(1.0 + tr, lambda q, s: torch.stack(
+        [(m21 - m12) * s, (m02 - m20) * s, (m10 - m01) * s, q], -1))
+    c1 = cand(1.0 + m00 - m11 - m22, lambda q, s: torch.stack(
+        [q, (m01 + m10) * s, (m02 + m20) * s, (m21 - m12) * s], -1))
+    c2 = cand(1.0 - m00 + m11 - m22, lambda q, s: torch.stack(
+        [(m01 + m10) * s, q, (m12 + m21) * s, (m02 - m20) * s], -1))
+    c3 = cand(1.0 - m00 - m11 + m22, lambda q, s: torch.stack(
+        [(m02 + m20) * s, (m12 + m21) * s, q, (m10 - m01) * s], -1))
+    use0 = (tr > 0.0)[..., None]
+    use1 = ((m00 > m11) & (m00 > m22))[..., None]
+    use2 = (m11 > m22)[..., None]
+    q = torch.where(use0, c0, torch.where(use1, c1, torch.where(use2, c2, c3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

@@ -1,0 +1,1 @@
+"""io (PyTorch port of weiner_slamit_v2_tpu/io)."""

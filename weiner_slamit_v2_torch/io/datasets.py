@@ -1,0 +1,145 @@
+"""Deterministic synthetic monocular sequences (port of the synthetic part of
+weiner_slamit_v2_tpu/io/datasets.py: ``make_synthetic_sequence`` for the
+single-plane world, ``SyntheticWorld``, ``_perlin_texture``,
+``_bilinear_sample``). numpy only; the Rodrigues rotation is evaluated in
+float32 as the JAX package evaluates it."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator
+
+import numpy as np
+
+
+@dataclass
+class FrameData:
+    timestamp: float
+    image: np.ndarray            # (H, W) float32 grayscale in [0, 255]
+
+
+@dataclass
+class Sequence:
+    frames: list[FrameData]
+    gt_Twc: np.ndarray | None = None  # (N, 4, 4)
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def __iter__(self) -> Iterator[FrameData]:
+        return iter(self.frames)
+
+
+def _perlin_texture(h: int, w: int, rng: np.random.Generator, octaves: int = 5) -> np.ndarray:
+    """Multi-octave value-noise texture with plenty of corners for FAST."""
+    img = np.zeros((h, w), dtype=np.float32)
+    for o in range(octaves):
+        step = 2 ** (octaves - o + 2)
+        gh, gw = h // step + 2, w // step + 2
+        grid = rng.uniform(0, 1, size=(gh, gw)).astype(np.float32)
+        img += np.kron(grid, np.ones((step, step), dtype=np.float32))[:h, :w] * (0.5**o)
+    for _ in range(160):   # high-contrast blocks for strong corners
+        y = rng.integers(8, h - 24)
+        x = rng.integers(8, w - 24)
+        s = int(rng.integers(6, 18))
+        img[y : y + s, x : x + s] = rng.uniform(0, 1)
+    img -= img.min()
+    img /= max(img.max(), 1e-6)
+    return (img * 255.0).astype(np.float32)
+
+
+def _bilinear_sample(img: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    h, w = img.shape
+    u0 = np.floor(u).astype(np.int32)
+    v0 = np.floor(v).astype(np.int32)
+    du = (u - u0).astype(np.float32)
+    dv = (v - v0).astype(np.float32)
+    u0c = np.clip(u0, 0, w - 2)
+    v0c = np.clip(v0, 0, h - 2)
+    a, b = img[v0c, u0c], img[v0c, u0c + 1]
+    c, e = img[v0c + 1, u0c], img[v0c + 1, u0c + 1]
+    out = a * (1 - du) * (1 - dv) + b * du * (1 - dv) + c * (1 - du) * dv + e * du * dv
+    inside = (u >= 0) & (u < w - 1) & (v >= 0) & (v < h - 1)
+    return np.where(inside, out, 0.0).astype(np.float32)
+
+
+@dataclass
+class SyntheticWorld:
+    """A textured plane at z = plane_depth, rendered exactly by ray casting."""
+
+    texture: np.ndarray
+    K: np.ndarray
+    plane_depth: float
+    pixels_per_meter: float
+
+    def render(self, Tcw: np.ndarray, h: int, w: int) -> np.ndarray:
+        K = self.K
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        us, vs = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+        ray = np.stack([(us - cx) / fx, (vs - cy) / fy, np.ones_like(us)], axis=-1)
+        R = Tcw[:3, :3].astype(np.float32)
+        t = Tcw[:3, 3].astype(np.float32)
+        C = -R.T @ t
+        ray_w = ray @ R
+        lam = (self.plane_depth - C[2]) / np.maximum(ray_w[..., 2], 1e-6)
+        Xw = C[None, None, :] + lam[..., None] * ray_w
+        th, tw = self.texture.shape
+        tu = Xw[..., 0] * self.pixels_per_meter + tw / 2.0
+        tv = Xw[..., 1] * self.pixels_per_meter + th / 2.0
+        return _bilinear_sample(self.texture, tu, tv)
+
+
+def _so3_exp_f32(omega: np.ndarray) -> np.ndarray:
+    """Rodrigues rotation in float32 (geometry/se3.so3_exp of the JAX package)."""
+    w = np.asarray(omega, np.float32)
+    f = np.float32
+    theta2 = f(np.sum(w * w))
+    theta = np.sqrt(theta2 + f(1e-8) * f(1e-8))
+    if theta2 > f(1e-8):
+        a, b = np.sin(theta) / theta, (f(1.0) - np.cos(theta)) / theta2
+    else:
+        a, b = f(1.0) - theta2 / f(6.0), f(0.5) - theta2 / f(24.0)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]], np.float32)
+    return (np.eye(3, dtype=np.float32) + f(a) * K + f(b) * (K @ K)).astype(np.float32)
+
+
+def make_synthetic_sequence(n_frames: int = 30, h: int = 480, w: int = 640, seed: int = 0,
+                            K: np.ndarray | None = None, motion: str = "strafe",
+                            plane_depth: float = 4.0, motion_frames: int | None = None) -> Sequence:
+    """Deterministic synthetic monocular sequence with exact ground truth
+    over a textured plane. motion: "strafe", "orbit", "loop" or "forward";
+    motion_frames normalizes the path by that frame count instead of
+    n_frames (constant per-frame motion for longer sequences)."""
+    rng = np.random.default_rng(seed)
+    if K is None:
+        K = np.array([[500.0, 0, w / 2 - 0.5], [0, 500.0, h / 2 - 0.5], [0, 0, 1]], dtype=np.float32)
+    scene = SyntheticWorld(
+        texture=_perlin_texture(int(h * 2.5), int(w * 2.5), rng), K=K,
+        plane_depth=plane_depth, pixels_per_meter=float(K[0, 0]) / plane_depth,
+    )
+    frames = []
+    gt = np.zeros((n_frames, 4, 4))
+    denom = max((motion_frames or n_frames) - 1, 1)
+    for i in range(n_frames):
+        a = i / denom
+        if motion == "strafe":
+            twc = np.array([0.8 * a, 0.15 * np.sin(2 * np.pi * a), 0.0])
+            rot = np.zeros(3)
+        elif motion == "orbit":
+            twc = np.array([0.6 * np.sin(np.pi * a), 0.1 * a, 0.2 * (1 - np.cos(np.pi * a))])
+            rot = np.array([0.02 * np.sin(2 * np.pi * a), -0.08 * np.sin(np.pi * a), 0.01 * a])
+        elif motion == "loop":
+            twc = np.array([0.9 * np.sin(2 * np.pi * a), 0.08 * np.sin(4 * np.pi * a),
+                            0.35 * (1 - np.cos(2 * np.pi * a))])
+            rot = np.array([0.0, -0.12 * np.sin(2 * np.pi * a), 0.0])
+        elif motion == "forward":
+            twc = np.array([0.05 * np.sin(2 * np.pi * a), 0.0, 0.9 * a])
+            rot = np.zeros(3)
+        else:
+            raise ValueError(f"unknown motion {motion!r}")
+        Twc = np.eye(4)
+        Twc[:3, :3] = _so3_exp_f32(rot)
+        Twc[:3, 3] = twc
+        gt[i] = Twc
+        frames.append(FrameData(timestamp=i / 30.0, image=scene.render(np.linalg.inv(Twc), h, w)))
+    return Sequence(frames=frames, gt_Twc=gt)

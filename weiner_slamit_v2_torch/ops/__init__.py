@@ -1,0 +1,1 @@
+"""ops (PyTorch port of weiner_slamit_v2_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""optim (PyTorch port of weiner_slamit_v2_tpu/optim)."""

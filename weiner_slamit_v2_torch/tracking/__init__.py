@@ -1,0 +1,1 @@
+"""tracking (PyTorch port of weiner_slamit_v2_tpu/tracking)."""

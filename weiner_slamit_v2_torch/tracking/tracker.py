@@ -1,0 +1,488 @@
+"""Per-frame monocular tracking: the front-end state machine (port of
+weiner_slamit_v2_tpu/tracking/tracker.py, per-frame mono subset;
+Tracking, src/Tracking.cc). States NOT_INITIALIZED / OK / LOST as in
+include/Tracking.h:88-94.
+
+Not ported in this slice (they raise ``NotImplementedError``): the fused
+N-frame scan (``frames_per_sync > 1``; ROADMAP A.7), relocalization and the
+auto-reset after an early loss (ROADMAP A.9: optim/pnp.py + bow/). The
+keyframe BoW registration only feeds those, so it is not ported either.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import SlamConfig
+from ..frontend import matcher
+from ..frontend.extractor import FrameFeatures, OrbExtractor
+from ..frontend.initializer import draw_samples, initialize_two_view
+from ..geometry import se3, triangulate
+from ..geometry.camera import Camera, bounds_from_config
+from ..optim.local_ba import BAProblem, solve_ba
+from ..optim.pose_opt import optimize_pose
+from ..slam_map import types as mt
+from ..slam_map.point_stats import predict_octave, refresh_point_stats
+from ..slam_map.types import SlamMap
+from ..util import nanmedian, put, topk
+
+NO_IMAGES_YET = "NO_IMAGES_YET"
+NOT_INITIALIZED = "NOT_INITIALIZED"
+OK = "OK"
+LOST = "LOST"
+
+
+def _track_last_frame(m: SlamMap, feats: FrameFeatures, last_obs, last_octave, last_angle,
+                      Tcw_pred, K, window, scale_factors, n_levels: int, nn_ratio, th_high,
+                      histo_bins: int):
+    """SearchByProjection last -> current (ORBmatcher.cc:1332-1474) with the
+    rotation-histogram filter. Returns (cur_obs (N,), n_matches)."""
+    has = last_obs >= 0
+    mp = last_obs.clamp(min=0)
+    has &= m.mp_valid[mp]
+    Pc = se3.apply(Tcw_pred, m.mp_pos[mp])
+    z = Pc[:, 2]
+    zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+    pred = torch.stack([K[0, 0] * Pc[:, 0] / zs + K[0, 2], K[1, 1] * Pc[:, 1] / zs + K[1, 2]], 1)
+    has &= z > 0
+    win = window * scale_factors[last_octave.clamp(0, n_levels - 1)]
+    lo = (last_octave - 1).clamp(0, n_levels - 1)
+    hi = (last_octave + 1).clamp(0, n_levels - 1)
+    idx, _ = matcher.match_with_window(
+        torch.where(has[:, None], m.mp_desc[mp], 0), feats.desc, has, feats.valid,
+        pred_xy=pred, xy2=feats.xy_und, window=win, max_dist=th_high, nn_ratio=nn_ratio,
+        octave2=feats.octave, octave_lo=lo, octave_hi=hi, angle1=last_angle,
+        angle2=feats.angle, histo_bins=histo_bins,
+    )
+    n = feats.n
+    ok = idx >= 0
+    cur = put(torch.full((n,), -1, dtype=torch.int32, device=idx.device),
+              torch.where(ok, idx, n), torch.where(ok, mp, -1))
+    return cur, ok.sum()
+
+
+def _match_reference_kf(m: SlamMap, feats: FrameFeatures, ref_kf: int, nn_ratio, th_low,
+                        histo_bins: int):
+    """TrackReferenceKeyFrame's matching stage (src/Tracking.cc:977-1024)."""
+    ref_has = (m.kf_obs[ref_kf] >= 0) & m.kf_feat_valid[ref_kf]
+    idx, _ = matcher.match_by_descriptor(
+        m.kf_desc[ref_kf], feats.desc, ref_has, feats.valid, max_dist=th_low,
+        nn_ratio=nn_ratio, angle1=m.kf_angle[ref_kf], angle2=feats.angle, histo_bins=histo_bins,
+    )
+    n = feats.n
+    ok = idx >= 0
+    cur = put(torch.full((n,), -1, dtype=torch.int32, device=idx.device),
+              torch.where(ok, idx, n), torch.where(ok, m.kf_obs[ref_kf], -1))
+    return cur, ok.sum()
+
+
+def _track_local_map(m: SlamMap, feats: FrameFeatures, cur_obs, Tcw, K, scale_factors, th,
+                     n_levels: int, nn_ratio, th_high, max_local_points: int,
+                     local_kf_cap: int, bounds):
+    """TrackLocalMap's point harvest + projection matching
+    (src/Tracking.cc:1409-1626). Returns (cur_obs, visible mask (M,))."""
+    dev = m.device
+    mp = cur_obs.clamp(min=0)
+    has = (cur_obs >= 0) & m.mp_valid[mp]
+    obs_kf = m.mp_obs_kf[mp]
+    obs_ok = has[:, None] & (obs_kf >= 0)
+    votes = put(torch.zeros(m.max_kf, dtype=torch.int32, device=dev),
+                torch.where(obs_ok, obs_kf, m.max_kf), 1, "add")
+    votes = torch.where(m.kf_valid, votes, 0)
+    kvals, kidx = topk(votes, min(local_kf_cap, m.max_kf))
+    local_kf = put(torch.zeros(m.max_kf, dtype=torch.bool, device=dev),
+                   torch.where(kvals > 0, kidx, m.max_kf), True)
+    flat = torch.where((local_kf & m.kf_valid)[:, None], m.kf_obs, -1).reshape(-1)
+    in_local = put(torch.zeros(m.max_mp, dtype=torch.bool, device=dev),
+                   torch.where(flat >= 0, flat, m.max_mp), True) & m.mp_valid
+    already = put(torch.zeros(m.max_mp, dtype=torch.bool, device=dev),
+                  torch.where(has, mp, m.max_mp), True)
+    cand = in_local & ~already
+
+    X = m.mp_pos
+    Pc = se3.apply(Tcw, X)
+    z = Pc[:, 2]
+    zs = torch.where(z.abs() < 1e-9, 1e-9, z)
+    u = K[0, 0] * Pc[:, 0] / zs + K[0, 2]
+    v = K[1, 1] * Pc[:, 1] / zs + K[1, 2]
+    ray = X - triangulate.camera_center(Tcw)
+    dist = torch.linalg.norm(ray, dim=1)
+    viewcos = (ray * m.mp_normal).sum(1) / torch.clamp(dist, min=1e-9)
+    in_frustum = (cand & (z > 0) & (u >= bounds[0]) & (u < bounds[1]) & (v >= bounds[2])
+                  & (v < bounds[3]) & (dist >= 0.8 * m.mp_min_dist)
+                  & (dist <= 1.2 * m.mp_max_dist) & (viewcos > 0.5))
+    pvals, pid = topk(torch.where(in_frustum, m.mp_n_obs, -1), min(max_local_points, m.max_mp))
+    p_ok = pvals >= 0
+    pred_oct = predict_octave(dist[pid], m.mp_max_dist[pid], scale_factors[1], n_levels)
+    r = torch.where(viewcos[pid] > 0.998, 2.5, 4.0)   # ORBmatcher.cc:65-71
+    win = r * th * scale_factors[pred_oct.clamp(0, n_levels - 1)]
+    idx, _ = matcher.match_with_window(
+        m.mp_desc[pid], feats.desc, p_ok, feats.valid & (cur_obs < 0),
+        pred_xy=torch.stack([u[pid], v[pid]], 1), xy2=feats.xy_und, window=win,
+        max_dist=th_high, nn_ratio=nn_ratio, octave2=feats.octave,
+        octave_lo=(pred_oct - 1).clamp(0, n_levels - 1), octave_hi=pred_oct.clamp(0, n_levels - 1),
+    )
+    n = feats.n
+    ok = idx >= 0
+    cur_obs = put(cur_obs, torch.where(ok, idx, n), torch.where(ok, pid, -1))
+    visible = put(torch.zeros(m.max_mp, dtype=torch.bool, device=dev),
+                  torch.where(p_ok, pid, m.max_mp), True)
+    return cur_obs, visible
+
+
+def _pose_opt_on_obs(m: SlamMap, feats: FrameFeatures, cur_obs, Tcw0, K, inv_sigma2,
+                     n_rounds: int, n_iters: int, lm_lambda: float):
+    """PoseOptimization over the frame's map-point matches
+    (src/Optimizer.cc:239-451); outliers are dropped from cur_obs."""
+    mp = cur_obs.clamp(min=0)
+    has = (cur_obs >= 0) & m.mp_valid[mp] & feats.valid
+    w = inv_sigma2[feats.octave.clamp(0, inv_sigma2.shape[0] - 1)]
+    Tcw, inl, n_inl = optimize_pose(Tcw0, m.mp_pos[mp], feats.xy_und, w, has, K,
+                                    n_rounds=n_rounds, n_iters=n_iters, lambda_init=lm_lambda)
+    return Tcw, torch.where(inl | ~has, cur_obs, -1), n_inl
+
+
+def _update_point_counters(m: SlamMap, visible, cur_obs) -> SlamMap:
+    """IncreaseVisible / IncreaseFound (Tracking.cc:1409-1447)."""
+    found = put(torch.zeros(m.max_mp, dtype=torch.bool, device=m.device),
+                torch.where(cur_obs >= 0, cur_obs.clamp(min=0), m.max_mp), True)
+    return m.replace(mp_visible=m.mp_visible + (visible | found).to(torch.int32),
+                     mp_found=m.mp_found + found.to(torch.int32))
+
+
+@dataclass
+class StepResult:
+    m: SlamMap
+    Tcw: torch.Tensor
+    cur_obs: torch.Tensor
+    velocity: torch.Tensor
+    T_cr: torch.Tensor
+    n_matches: int
+    n_inl1: int
+    n_inl2: int
+    ok1: bool
+    n_ref: int
+    n_kf_valid: int
+
+
+def track_step(m: SlamMap, feats: FrameFeatures, last_obs, last_octave, last_angle,
+               velocity: Optional[torch.Tensor], last_Tcw, ref_kf: int, K, scale_factors,
+               inv_sigma2, cfg: SlamConfig, local_th: float, bounds) -> StepResult:
+    """One tracking step in the OK state (Tracking::Track,
+    src/Tracking.cc:385-694): motion-model match (2x window retry) or the
+    reference-keyframe fallback, pose LM, local-map match, pose LM, point
+    counters and the NeedNewKeyFrame statistics. The JAX package fuses this
+    into one device program with one scalar fetch; here the scalar fetch is
+    the few ``int()`` reads of the decisions."""
+    t, mc, o = cfg.tracking, cfg.matcher, cfg.optim
+    n_levels, hb = cfg.orb.n_levels, mc.histo_length
+    Tcw_pred = velocity @ last_Tcw if velocity is not None else last_Tcw
+
+    def motion(window):
+        return _track_last_frame(m, feats, last_obs, last_octave, last_angle, Tcw_pred, K,
+                                 window, scale_factors, n_levels, mc.nn_ratio_motion,
+                                 mc.th_high, hb)
+
+    obs, n = motion(t.motion_search_window)
+    if int(n) < t.min_matches_motion:               # widen 2x (Tracking.cc:1108-1121)
+        obs, n = motion(2.0 * t.motion_search_window)
+    need_ref = int(n) < t.min_matches_motion        # TrackReferenceKeyFrame (Tracking.cc:449)
+    if need_ref:
+        obs, n = _match_reference_kf(m, feats, ref_kf, mc.nn_ratio_refkf, mc.th_low, hb)
+    Tcw0 = last_Tcw if need_ref else Tcw_pred
+    enough = int(n) >= (t.min_matches_refkf if need_ref else t.min_matches_motion)
+
+    Tcw1, obs, n_i1 = _pose_opt_on_obs(m, feats, obs, Tcw0, K, inv_sigma2,
+                                       o.pose_opt_rounds, o.pose_opt_iters, o.lm_lambda_init)
+    ok1 = enough and int(n_i1) >= t.min_inliers_motion
+    obs, visible = _track_local_map(
+        m, feats, obs, Tcw1, K, scale_factors, local_th, n_levels, mc.nn_ratio_localmap,
+        mc.th_high, cfg.capacity.local_ba_points, t.local_map_kf_cap, bounds,
+    )
+    Tcw2, obs, n_i2 = _pose_opt_on_obs(m, feats, obs, Tcw1, K, inv_sigma2,
+                                       o.pose_opt_rounds, o.pose_opt_iters, o.lm_lambda_init)
+    # counters advance only when the pre-local-map stages succeeded
+    m2 = _update_point_counters(m, visible, obs) if ok1 else m
+
+    n_kf_valid = int(m.kf_valid.sum())
+    min_obs = 3 if n_kf_valid > 2 else 2
+    robs = m.kf_obs[ref_kf]
+    rmp = robs.clamp(min=0)
+    rhas = (robs >= 0) & m.kf_feat_valid[ref_kf] & m.mp_valid[rmp]
+    n_ref = int((rhas & (m.mp_n_obs[rmp] >= min_obs)).sum())
+    return StepResult(
+        m=m2, Tcw=Tcw2, cur_obs=obs, velocity=Tcw2 @ se3.inv(last_Tcw),
+        T_cr=Tcw2 @ se3.inv(m.kf_pose[ref_kf]), n_matches=int(n), n_inl1=int(n_i1),
+        n_inl2=int(n_i2), ok1=ok1, n_ref=n_ref, n_kf_valid=n_kf_valid,
+    )
+
+
+def build_initial_map(m: SlamMap, feats1: FrameFeatures, feats2: FrameFeatures, idx, good, pts,
+                      Tcw2, fid1: int, ts1: float, fid2: int, ts2: float, K, inv_sigma2,
+                      scale_factors, n_out: int):
+    """CreateInitialMapMonocular (src/Tracking.cc:852-957): cut the 2x init
+    feature budget back to the map's (matched rows first), median-depth
+    rescale, two-camera init BA, freeze both keyframes, insert the points.
+    Returns (map, frame-2 features cut to n_out)."""
+    dev = m.device
+    n_big = feats1.n
+
+    def top_rows(f, keep):
+        key = keep.float() * 1e9 + f.valid.float() * 1e6 + f.response
+        return topk(key, n_out)[1]
+
+    sel1 = top_rows(feats1, good)
+    matched = put(torch.zeros(n_big, dtype=torch.bool, device=dev),
+                  torch.where(good, idx.clamp(min=0), n_big), True)
+    sel2 = top_rows(feats2, matched)
+    f1, f2 = feats1.take(sel1), feats2.take(sel2)
+    inv2 = put(torch.full((n_big,), -1, dtype=torch.int32, device=dev), sel2,
+               torch.arange(n_out, dtype=torch.int32, device=dev))
+    idx_n = torch.where(good[sel1], inv2[idx[sel1].clamp(min=0)], -1)
+    good_n = good[sel1] & (idx_n >= 0)
+    pts_n = pts[sel1]
+
+    med = nanmedian(torch.where(good_n, pts_n[:, 2], torch.nan))   # Tracking.cc:901-930
+    med = torch.where(torch.isnan(med) | (med <= 1e-6), 1.0, med)
+    pts_n = pts_n / med
+    Tcw2 = Tcw2.clone()
+    Tcw2[:3, 3] = Tcw2[:3, 3] / med
+
+    eye = torch.eye(4, device=dev)
+    L = inv_sigma2.shape[0]
+    i2 = idx_n.clamp(min=0)
+    prob = BAProblem(
+        cam_pose=torch.stack([eye, Tcw2]),
+        cam_fixed=torch.tensor([True, False], device=dev),
+        cam_valid=torch.tensor([True, True], device=dev),
+        points=pts_n, point_valid=good_n,
+        obs_cam=torch.where(good_n[:, None], torch.tensor([0, 1], dtype=torch.int32, device=dev), -1),
+        obs_uv=torch.stack([f1.xy_und, f2.xy_und[i2]], 1),
+        obs_inv_sigma2=torch.stack([inv_sigma2[f1.octave.clamp(0, L - 1)],
+                                    inv_sigma2[f2.octave[i2].clamp(0, L - 1)]], 1),
+        obs_valid=good_n[:, None].expand(-1, 2),
+        K=K,
+    )
+    ba = solve_ba(prob, 5, 15)   # GlobalBundleAdjustemnt(map, 20), Tracking.cc:894
+    Tcw2, pts_n = ba.cam_pose[1], ba.points
+    good_n = good_n & (ba.obs_inlier | ~prob.obs_valid).all(1)
+
+    none = torch.full((n_out,), -1, dtype=torch.int32, device=dev)
+    m, kf0 = mt.add_keyframe(m, eye, f1.xy_und, f1.octave, f1.angle, f1.desc, f1.valid,
+                             none, fid1, ts1, -1)
+    m, kf1 = mt.add_keyframe(m, Tcw2, f2.xy_und, f2.octave, f2.angle, f2.desc, f2.valid,
+                             none, fid2, ts2, kf0)
+    m, _ = mt.add_map_points(
+        m, pos=pts_n, desc=f1.desc,
+        normal=torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n_out, 3),
+        min_dist=torch.full((n_out,), 0.1, device=dev), max_dist=torch.full((n_out,), 100.0, device=dev),
+        kf1=torch.full((n_out,), kf0, dtype=torch.int32, device=dev),
+        feat1=torch.arange(n_out, dtype=torch.int32, device=dev),
+        kf2=torch.full((n_out,), kf1, dtype=torch.int32, device=dev), feat2=i2, valid=good_n,
+    )
+    return refresh_point_stats(m, scale_factors), f2
+
+
+@dataclass
+class TrackerOutput:
+    state: str
+    Tcw: Optional[torch.Tensor]
+    n_inliers: int
+    created_kf: bool
+    # keyframe-relative pose from the tracking step (None: compose at log time)
+    T_cr: Optional[torch.Tensor] = None
+
+
+class Tracker:
+    """Monocular tracking session: owns the map and the per-frame state."""
+
+    def __init__(self, cfg: SlamConfig, camera: Camera, device=None):
+        if cfg.tracking.frames_per_sync != 1:
+            raise NotImplementedError(
+                "frames_per_sync > 1 (fused N-frame scan) is not ported: ROADMAP A.7")
+        if cfg.sensor != "monocular":
+            raise NotImplementedError(f"sensor={cfg.sensor!r} is not ported: ROADMAP A.10")
+        self.cfg = cfg
+        self.camera = camera
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        hw = (camera.height, camera.width)
+        self.extractor = OrbExtractor(cfg.orb, hw)
+        mult = cfg.orb.init_features_mult
+        self.init_extractor = (
+            OrbExtractor(cfg.orb.__class__(**{**cfg.orb.__dict__, "n_features": cfg.orb.n_features * mult}), hw)
+            if mult > 1 else self.extractor
+        )
+        dev = self.device
+        self.K = camera.K(dev)
+        self.scale_factors = torch.from_numpy(self.extractor.scales).to(dev)
+        self.sigma2 = torch.from_numpy(self.extractor.sigma2).to(dev)
+        self.inv_sigma2 = torch.from_numpy(self.extractor.inv_sigma2).to(dev)
+        self.bounds = torch.from_numpy(bounds_from_config(cfg.camera)).to(dev)
+        self.eye4 = torch.eye(4, device=dev)
+        self.m = mt.empty_map(cfg.capacity, cfg.orb.n_features, dev)
+        self.n_kf_host = 0
+        self.state = NO_IMAGES_YET
+        self.frame_id = -1
+        self.last_feats: Optional[FrameFeatures] = None
+        self.last_obs: Optional[torch.Tensor] = None
+        self.last_Tcw: Optional[torch.Tensor] = None
+        self.velocity: Optional[torch.Tensor] = None
+        self.ref_kf = 0
+        self.last_kf_frame = 0
+        self.init_feats: Optional[FrameFeatures] = None
+        self.init_ts = 0.0
+        # per-frame log (timestamp, T_cr = Tcw Tref^-1, ref_kf), recomposed at
+        # export with the reference keyframe's current pose (System.cc:401-454)
+        self.trajectory: list[tuple[float, torch.Tensor, int]] = []
+        self.mapping_hook: Optional[Callable[[int], None]] = None
+        self.mapper_idle_hook: Optional[Callable[..., bool]] = None
+        # RANSAC draws for the initializer: (frame_id, n_valid) -> (200, 8)
+        self.init_draws: Callable[[int, int], torch.Tensor] = self._default_draws
+
+    def _default_draws(self, frame_id: int, n_valid: int) -> torch.Tensor:
+        g = torch.Generator().manual_seed(self.cfg.seed + frame_id)
+        return draw_samples(n_valid, g, self.device)
+
+    def _extract(self, image: torch.Tensor, initializing: bool) -> FrameFeatures:
+        ex = self.init_extractor if initializing else self.extractor
+        feats = ex(image)
+        return feats.replace(xy_und=self.camera.undistort_points(feats.xy))
+
+    def process_frame(self, image, timestamp: float) -> TrackerOutput:
+        """Track one (H, W) uint8 or float32 frame."""
+        self.frame_id += 1
+        img = torch.as_tensor(np.asarray(image)).to(self.device)
+        initializing = self.state in (NO_IMAGES_YET, NOT_INITIALIZED)
+        feats = self._extract(img, initializing)
+        if initializing:
+            out = self._try_initialize(feats, timestamp)
+        elif self.state == OK:
+            out = self._track(feats, timestamp)
+        else:
+            raise NotImplementedError(
+                "relocalization after tracking loss is not ported: ROADMAP A.9 "
+                "(optim/pnp.py + bow/ + relocalization)")
+        if out.Tcw is not None:
+            if out.created_kf:
+                T_cr = self.eye4
+            elif out.T_cr is not None:
+                T_cr = out.T_cr
+            else:
+                T_cr = out.Tcw @ se3.inv(self.m.kf_pose[self.ref_kf])
+            self.trajectory.append((timestamp, T_cr, self.ref_kf))
+        elif self.trajectory:
+            self.trajectory.append((timestamp, *self.trajectory[-1][1:]))
+        return out
+
+    def _try_initialize(self, feats: FrameFeatures, ts: float) -> TrackerOutput:
+        cfg = self.cfg
+        n_valid = int(feats.valid.sum())
+        if self.init_feats is None:
+            if n_valid > cfg.tracking.init_min_keypoints:
+                self.init_feats, self.init_ts = feats, ts
+                self.state = NOT_INITIALIZED
+            return TrackerOutput(self.state, None, 0, False)
+        if n_valid <= cfg.tracking.init_min_keypoints:
+            self.init_feats = None
+            return TrackerOutput(self.state, None, 0, False)
+        idx, _ = matcher.search_for_initialization(
+            self.init_feats, feats, window=cfg.tracking.init_window,
+            nn_ratio=cfg.matcher.nn_ratio_motion)
+        ok = idx >= 0
+        n_matches = int(ok.sum())
+        if n_matches < cfg.tracking.init_min_matches:
+            self.init_feats, self.init_ts = feats, ts
+            return TrackerOutput(self.state, None, n_matches, False)
+        i2 = idx.clamp(min=0)
+        oct_pair = torch.maximum(self.init_feats.octave, feats.octave[i2])
+        res = initialize_two_view(
+            self.init_feats.xy_und, feats.xy_und[i2], ok, self.K,
+            self.init_draws(self.frame_id, n_matches),
+            sigma2=self.sigma2[oct_pair.clamp(0, cfg.orb.n_levels - 1)],
+        )
+        if not bool(res.success):
+            return TrackerOutput(self.state, None, n_matches, False)
+        self.m, f2 = build_initial_map(
+            self.m, self.init_feats, feats, idx, res.is_point & ok, res.points, res.Tcw2,
+            self.frame_id - 1, self.init_ts, self.frame_id, ts, self.K, self.inv_sigma2,
+            self.scale_factors, n_out=cfg.orb.n_features,
+        )
+        kf1 = 1   # initialization starts from an empty map: kf0 = 0
+        self.n_kf_host = 2
+        self.last_feats, self.last_obs = f2, self.m.kf_obs[kf1]
+        self.last_Tcw, self.velocity = self.m.kf_pose[kf1], None
+        self.ref_kf, self.last_kf_frame = kf1, self.frame_id
+        self.state = OK
+        return TrackerOutput(OK, self.last_Tcw, int(res.n_good), True)
+
+    def _track(self, feats: FrameFeatures, ts: float) -> TrackerOutput:
+        cfg = self.cfg
+        # (the post-relocalization window widening and the stricter
+        # 50-inlier floor, Tracking.cc:1200-1206,1452, arrive with ROADMAP A.9)
+        r = track_step(
+            self.m, feats, self.last_obs, self.last_feats.octave, self.last_feats.angle,
+            self.velocity, self.last_Tcw, self.ref_kf, self.K, self.scale_factors,
+            self.inv_sigma2, cfg, 1.0, self.bounds,
+        )
+        self.m = r.m
+        if not r.ok1 or r.n_inl2 < cfg.tracking.min_inliers_localmap:
+            self.state = LOST
+            if r.n_kf_valid <= cfg.tracking.auto_reset_max_kfs:
+                raise NotImplementedError(
+                    "auto-reset after an early tracking loss is not ported: ROADMAP A.9")
+            return TrackerOutput(LOST, None, r.n_inl2 if r.ok1 else r.n_inl1, False)
+        self.velocity, self.last_Tcw = r.velocity, r.Tcw
+        self.last_feats, self.last_obs = feats, r.cur_obs
+        created = False
+        if self._need_new_keyframe(r.n_inl2, r.n_ref):
+            self._create_keyframe(feats, r.Tcw, r.cur_obs, ts)
+            created = True
+        return TrackerOutput(OK, r.Tcw, r.n_inl2, created, T_cr=r.T_cr)
+
+    def _need_new_keyframe(self, n_inliers: int, n_ref: int) -> bool:
+        """NeedNewKeyFrame (src/Tracking.cc:1210-1310), monocular."""
+        cfg = self.cfg
+        fid = self.frame_id
+        if self.n_kf_host >= self.m.max_kf - 1:
+            return False
+        c2 = n_inliers < n_ref * cfg.tracking.keyframe_min_ratio and n_inliers > 15
+        if n_ref == 0:
+            c2 = n_inliers > 15
+        if not c2:
+            return False
+        c1a = fid >= self.last_kf_frame + cfg.tracking.max_frames_between_kf
+        idle = self.mapper_idle_hook() if self.mapper_idle_hook else True
+        c1b = fid >= self.last_kf_frame + cfg.tracking.min_frames_between_kf and idle
+        if c1a and not idle:
+            # forced insertion: drain the mapper first (Tracking.cc:1287-1303)
+            self.mapper_idle_hook(force=True)
+        return bool(c1a or c1b)
+
+    def _create_keyframe(self, feats: FrameFeatures, Tcw, cur_obs, ts: float) -> None:
+        """CreateNewKeyFrame (src/Tracking.cc:1312-1407) + the mapping pass."""
+        if self.n_kf_host >= self.m.max_kf:
+            return
+        self.m, kf = mt.add_keyframe(
+            self.m, Tcw, feats.xy_und, feats.octave, feats.angle, feats.desc,
+            feats.valid, cur_obs, self.frame_id, ts, self.ref_kf)
+        self.n_kf_host += 1
+        self.ref_kf = kf
+        self.last_kf_frame = self.frame_id
+        if self.mapping_hook is not None:
+            self.mapping_hook(kf)
+
+    def trajectory_Twc(self) -> tuple[np.ndarray, np.ndarray]:
+        """(timestamps (F,), Twc (F,4,4)): each logged keyframe-relative pose
+        composed with its reference keyframe's current pose."""
+        if not self.trajectory:
+            return np.zeros(0), np.zeros((0, 4, 4))
+        ts = np.asarray([t for t, _, _ in self.trajectory])
+        T_cr = torch.stack([p for _, p, _ in self.trajectory])
+        refs = torch.tensor([r for _, _, r in self.trajectory], device=self.device)
+        anchor = torch.where((refs >= 0)[:, None, None], self.m.kf_pose[refs.clamp(min=0)], self.eye4)
+        Tcw = (T_cr @ anchor).double().cpu().numpy()
+        return ts, np.linalg.inv(Tcw)

@@ -1,0 +1,76 @@
+"""Tensor idioms the JAX reference leans on, written once for the port.
+
+* ``put``: the ``x.at[idx].set/add/min/max(v, mode="drop")`` scatter. Out of
+  range indices are dropped, not raised (JAX's "drop" mode): the scatter goes
+  into a copy with one sentinel row that is sliced off afterwards, so no
+  index ever needs a host-side filter (no device sync).
+* ``topk``: ``jax.lax.top_k`` — ties go to the lower index, which
+  ``torch.topk`` does not promise; a stable descending sort does.
+* ``fma``: ``a * b + c`` rounded once, the form XLA:CPU emits for a fused
+  multiply-add. The exact product of two float32 values fits a float64, so
+  the sum rounded to float32 is the fused result.
+* ``nanmedian``: numpy/JAX semantics (the mean of the two middle values for
+  an even count; ``torch.nanmedian`` returns the lower one).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def put(arr: torch.Tensor, idx, vals, op: str = "set") -> torch.Tensor:
+    """Return ``arr`` with ``vals`` scattered at ``idx`` (a tensor or a tuple
+    of tensors over the leading dims); indices outside ``[0, size)`` drop."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    lead = len(idx)
+    shape = arr.shape
+    tail = tuple(shape[lead:])
+    idx = torch.broadcast_tensors(*[torch.as_tensor(i, device=arr.device) for i in idx])
+    ok = torch.ones(idx[0].shape, dtype=torch.bool, device=arr.device)
+    lin = torch.zeros(idx[0].shape, dtype=torch.int64, device=arr.device)
+    n = 1
+    for d, i in enumerate(idx):
+        i = i.long()
+        ok = ok & (i >= 0) & (i < shape[d])
+        lin = lin * shape[d] + i.clamp(0, shape[d] - 1)
+        n *= shape[d]
+    lin = torch.where(ok, lin, n).reshape(-1)
+    flat = arr.reshape((n,) + tail)
+    ext = torch.cat([flat, flat.new_zeros((1,) + tail)])
+    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    vals = vals.broadcast_to(idx[0].shape + tail).reshape((-1,) + tail)
+    if op == "set":
+        ext.index_put_((lin,), vals)
+    elif op == "add":
+        ext.index_put_((lin,), vals, accumulate=True)
+    elif op in ("min", "max"):
+        index = lin.reshape((-1,) + (1,) * len(tail)).expand_as(vals)
+        ext.scatter_reduce_(0, index, vals, reduce="a" + op, include_self=True)
+    else:
+        raise ValueError(op)
+    return ext[:n].reshape(shape)
+
+
+def topk(x: torch.Tensor, k: int, dim: int = -1):
+    """(values, indices) of the k largest along ``dim``; ties to the lower
+    index, like ``jax.lax.top_k``."""
+    vals, idx = torch.sort(x, dim=dim, descending=True, stable=True)
+    return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` with one rounding to float32."""
+    d = torch.float64
+    a, b, c = (torch.as_tensor(v) for v in (a, b, c))
+    return (a.to(d) * b.to(d) + c.to(d)).to(torch.float32)
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """Median of the non-NaN entries of a 1-D tensor (NaN if none)."""
+    n = (~torch.isnan(x)).sum()
+    s = torch.sort(torch.where(torch.isnan(x), torch.inf, x)).values
+    lo = s[((n - 1) // 2).clamp(min=0)]
+    hi = s[(n // 2).clamp(max=x.shape[0] - 1)]
+    med = torch.where(n % 2 == 1, lo, 0.5 * lo + 0.5 * hi)
+    return torch.where(n > 0, med, torch.nan)
