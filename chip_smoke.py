@@ -4,23 +4,36 @@
 
 Phases (each failure ends the run with a non-zero exit code):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from weiner_slamit_v2_torch/csrc with nvcc;
-  3. kernel A (fused FAST + NMS) against its plain version at the 8
-     pyramid-level shapes of a 640x480 frame: bit-exact, plus median times;
+  2. build the CUDA kernels from weiner_slamit_v2_torch/csrc with nvcc (one
+     process per source, all at once), with csrc/v1 beside them: the first,
+     per-level designs, loaded here only, and timed beside the current ones;
+  3. kernel A (FAST + NMS over all pyramid levels in one launch) against its
+     plain version on a 640x480 frame's 8 levels and on odd level sets:
+     bit-exact; device times per frame of the kernel, the v1 design and the
+     plain version;
   4. kernel B (gated windowed Hamming best/second) against its plain version
-     at the fuse shape (20 targets x 1024 x 1024, chi2 gate on) and at a
-     ragged shape without the gate: exact, plus median times;
-  5. the monocular slice: System.track_monocular over 120 synthetic 640x480
-     frames, 1024 features, local mapping on; asserts initialization, OK
-     tracking from then on, keyframe and mapping-pass counts, the kernels'
-     launch counts on that run, and the scale-aligned ATE.
-Prints a JSON line of kernel results, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+     on random inputs at the fuse shape and on the adversarial cases of
+     ops/kernel_cases.py: exact; device times at the random shapes;
+  5. the monocular slice: System.track_monocular (System on the card by
+     default) over 120 synthetic 640x480 frames, 1024 features, local
+     mapping on; asserts initialization, OK tracking from then on, keyframe
+     and mapping-pass counts, the kernels' launch counts on that run (kernel
+     A once per frame), and the scale-aligned ATE. One kernel-B call of the
+     fuse is recorded;
+  6. kernel B at the recorded fuse inputs: exact; device times of the
+     kernel, the v1 design and the plain version, and the inputs' sparsity:
+     rows with valid1, columns per row's window, columns the binned kernel
+     visits.
+Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
+line of kernel results, the card's name and power limit, and as the last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -30,6 +43,35 @@ import torch
 
 N_FRAMES = 120
 ATE_BOUND_M = 0.06
+# NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s, float32 operations/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# kernel A per pixel in its design: 2 x 57 arc min/max, 2 subtractions, the
+# polarity max, the threshold, 8 NMS compares and the select
+FAST_OPS_PER_PX = 127
+# kernel B: gate operations per (valid row, valid column) pair, and the
+# XOR/popcount/add work of a pair that passes every gate
+GATE_OPS_PER_PAIR = 8
+DIST_OPS_PER_PAIR = 24
+# kernel B's bytes: a usable row (valid1, a window > 0, a finite prediction)
+# reads its descriptor, flag, xy, window and octave range and writes 3 ints;
+# a row with valid1 but no usable window reads its flag, xy and window; a row
+# without valid1 only its flag. A valid column is read whole, any other only
+# for its flag
+ROW_BYTES = 32 + 1 + 8 + 4 + 4 + 4 + 12
+ROW_UNUSABLE_BYTES = 1 + 8 + 4 + 12
+ROW_INVALID_BYTES = 1 + 12
+COL_BYTES, COL_INVALID_BYTES = 32 + 1 + 8 + 4 + 4, 1
+# C entry points of the first designs (csrc/v1/), in their C signatures' order
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+V1_SIGNATURES = {
+    "fast_score_nms_v1_launch": [_P, _P, _I, _I, _P],   # (img, out, H, W, stream)
+    # (d1, v1, pxy, win, lo, hi, d2, v2, xy2, oct2, w2, th, best_idx, best_dist,
+    #  second_dist, B, N1, N2, stream)
+    "windowed_best2_v1_launch": [_P] * 11 + [_F] + [_P] * 3 + [_I] * 3 + [_P],
+}
+_v1 = None
 
 
 def log(msg: str) -> None:
@@ -49,101 +91,262 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of fn() over reps launches (after warmup)."""
-    for _ in range(3):
-        fn()
+def device_ms(fn, reps: int = 100, loops: int = 5) -> float:
+    """Device time of one fn() in ms: the median over ``loops`` windows of one
+    CUDA event pair around ``reps`` calls, divided by ``reps``.
+
+    The reps calls are captured once into a CUDA graph and the window replays
+    it, so the host's enqueue cost (ctypes, argument checks, torch.empty),
+    which can exceed a small kernel's run time, is not in the window. The
+    inputs stay warm in L2 between calls, as on the main path, where the
+    pyramid and the fuse's gathers have just written them: no flush."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     times = []
-    for _ in range(reps):
+    for _ in range(loops):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    torch.cuda.synchronize()
     return float(np.median(times))
 
 
-def phase_kernel_a(frame: np.ndarray, dev) -> dict:
-    from weiner_slamit_v2_torch.ops import pyramid
-    from weiner_slamit_v2_torch.ops.fast_kernel import fast_score_nms, fast_score_nms_plain
+def eager_ms(fn, reps: int = 100, loops: int = 5) -> float:
+    """The same window with the reps calls issued from Python: includes the
+    host's enqueue time wherever it exceeds the device's."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(loops):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
 
-    levels = pyramid.build_pyramid(torch.from_numpy(frame).to(dev).float(), 8, 1.2)
-    ms = plain_ms = 0.0
-    err = 0.0
-    for lvl, img in enumerate(levels):
-        img = img.contiguous()
-        out = fast_score_nms(img)
-        ref = fast_score_nms_plain(img)
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --- the first designs (csrc/v1), called directly for timing -----------------
+
+def fast_v1(levels):
+    from weiner_slamit_v2_torch.ops import cuda_build
+
+    outs, stream = [], torch.cuda.current_stream().cuda_stream
+    for img in levels:
+        out = torch.empty_like(img)
+        cuda_build.check(_v1.fast_score_nms_v1_launch(img.data_ptr(), out.data_ptr(),
+                                                      img.shape[0], img.shape[1], stream), "v1 A")
+        outs.append(out)
+    return outs
+
+
+def best2_v1(*args):
+    from weiner_slamit_v2_torch.ops import cuda_build
+
+    (d1, d2, v1, v2, pxy, xy2, win, lo, hi, o2, w2), th = args[:11], args[11]
+    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
+    outs = [torch.empty((B, N1), dtype=torch.int32, device=d1.device) for _ in range(3)]
+    ptrs = [t.data_ptr() for t in (d1, v1, pxy, win, lo, hi, d2, v2, xy2, o2, w2)]
+    cuda_build.check(_v1.windowed_best2_v1_launch(
+        *ptrs, float(th), *(o.data_ptr() for o in outs), B, N1, N2,
+        torch.cuda.current_stream().cuda_stream), "v1 B")
+    return tuple(outs)
+
+
+# --- phases --------------------------------------------------------------------
+
+def phase_kernel_a(frame: np.ndarray, dev) -> dict:
+    from weiner_slamit_v2_torch.ops import kernel_cases, pyramid
+    from weiner_slamit_v2_torch.ops.fast_kernel import (fast_score_nms_levels,
+                                                        fast_score_nms_levels_plain)
+
+    levels = [l.contiguous() for l in
+              pyramid.build_pyramid(torch.from_numpy(frame).to(dev).float(), 8, 1.2)]
+    sets = {"640x480 pyramid": levels, **kernel_cases.fast_level_sets(dev)}
+    err = None
+    for name, lv in sets.items():
+        outs, refs, olds = fast_score_nms_levels(lv), fast_score_nms_levels_plain(lv), fast_v1(lv)
         torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"kernel A != plain at level {lvl} {tuple(img.shape)}: "
-                                 f"{int((out != ref).sum())} pixels differ")
-        err = max(err, float((out - ref).abs().max()))
-        k_ms = median_ms(lambda: fast_score_nms(img))
-        p_ms = median_ms(lambda: fast_score_nms_plain(img))
-        ms += k_ms
-        plain_ms += p_ms
-        log(f"kernel A level {lvl} {tuple(img.shape)}: equal, corners={int((out > 0).sum())}, "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        for i, (o, r, v) in enumerate(zip(outs, refs, olds)):
+            check(torch.equal(o, r), f"kernel A != plain on {name} level {i} "
+                  f"{tuple(lv[i].shape)}: {int((o != r).sum())} pixels differ")
+            check(torch.equal(v, r), f"v1 kernel A != plain on {name} level {i}")
+        if err is None:   # the 640x480 pyramid's
+            err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+        log(f"kernel A {name} {[tuple(l.shape) for l in lv]}: equal, "
+            f"corners={[int((o > 0).sum()) for o in outs]}")
+    px = sum(l.numel() for l in levels)
+    k_ms = device_ms(lambda: fast_score_nms_levels(levels))
+    v1_ms = device_ms(lambda: fast_v1(levels))
+    p_ms = device_ms(lambda: fast_score_nms_levels_plain(levels), reps=100, loops=3)
+    k_eager = eager_ms(lambda: fast_score_nms_levels(levels))
+    v1_eager = eager_ms(lambda: fast_v1(levels))
+    b_ms, b_by = bound(8.0 * px, FAST_OPS_PER_PX * px)
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(lambda: one.add_(1.0))
+    log(f"launch floor: a one-element torch kernel, timed the same way: {floor_ms:.5f} ms")
+    log(f"kernel A per frame ({px} px in 8 levels), device time: v1 {v1_ms:.5f} ms, "
+        f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms; with host enqueue (eager loop): "
+        f"v1 {v1_eager:.5f} ms, kernel {k_eager:.5f} ms")
     return dict(name="fast_score_nms", route="cuda",
                 source="weiner_slamit_v2_torch/csrc/fast_score_nms.cu",
                 replaces="weiner_slamit_v2_tpu/ops/fast_pallas.py:123",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, v1_ms=v1_ms)
 
 
-def kernel_b_inputs(B: int, N1: int, N2: int, seed: int, dev):
-    """Random kernel-B inputs; every row's predicted position lies within a
-    few pixels of some column, as projected map points do in the fuse."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    lo = rng.integers(0, 6, (B, N1)).astype(np.int32)
-    xy2 = rng.uniform(0, 640, (B, N2, 2)).astype(np.float32)
-    near = np.take_along_axis(xy2, rng.integers(0, N2, (B, N1, 1)), axis=1)
-    pred = (near + rng.normal(0, 2.0, (B, N1, 2))).astype(np.float32)
-    return (
-        t(rng.integers(0, 2**32, (B, N1, 8), dtype=np.uint32).view(np.int32)),
-        t(rng.integers(0, 2**32, (B, N2, 8), dtype=np.uint32).view(np.int32)),
-        t(rng.random((B, N1)) > 0.1), t(rng.random((B, N2)) > 0.1),
-        t(pred), t(xy2),
-        t(rng.uniform(3, 60, (B, N1)).astype(np.float32)),
-        t(lo), t(lo + 1), t(rng.integers(0, 8, (B, N2)).astype(np.int32)),
-        t(rng.uniform(0.2, 1.0, (B, N2)).astype(np.float32)),
-    )
-
-
-def phase_kernel_b(dev) -> dict:
+def check_b(args, th, label: str) -> tuple:
+    """Kernel B's and v1's outputs against the plain version's, exact; returns
+    the kernel's outputs and their largest absolute difference from plain."""
     from weiner_slamit_v2_torch.ops.match_kernel import windowed_best2, windowed_best2_plain
 
-    result = None
+    out, ref, old = windowed_best2(*args, th), windowed_best2_plain(*args, th), best2_v1(*args, th)
+    torch.cuda.synchronize()
+    for name, a, b, v in zip(("best_idx", "best_dist", "second_dist"), out, ref, old):
+        check(torch.equal(a, b), f"kernel B {name} != plain on {label}: "
+              f"{int((a != b).sum())} entries differ")
+        check(torch.equal(v, b), f"v1 kernel B {name} != plain on {label}")
+    return out, max(float((a - b).abs().max()) for a, b in zip(out, ref))
+
+
+def phase_kernel_b(dev) -> None:
+    from weiner_slamit_v2_torch.ops import kernel_cases
+    from weiner_slamit_v2_torch.ops.match_kernel import windowed_best2, windowed_best2_plain
+
     for (B, N1, N2, th) in [(20, 1024, 1024, 5.991), (3, 1000, 777, 0.0)]:
-        args = kernel_b_inputs(B, N1, N2, seed=B + N2, dev=dev)
-        out = windowed_best2(*args, th)
-        ref = windowed_best2_plain(*args, th)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("best_idx", "best_dist", "second_dist"), out, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"kernel B {name} != plain at {(B, N1, N2)}: "
-                                     f"{int((a != b).sum())} entries differ")
-        n_match = int((out[1] < 10_000).sum())
-        k_ms = median_ms(lambda: windowed_best2(*args, th))
-        p_ms = median_ms(lambda: windowed_best2_plain(*args, th))
-        log(f"kernel B {(B, N1, N2)} chi2_th={th}: equal, rows with a candidate={n_match}, "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        if result is None:   # the main path's shape
-            result = dict(name="windowed_best2", route="cuda",
-                          source="weiner_slamit_v2_torch/csrc/windowed_best2.cu",
-                          replaces="weiner_slamit_v2_tpu/ops/match_pallas.py:157",
-                          max_abs_err=0.0, ms=k_ms, plain_ms=p_ms)
-    return result
+        args = kernel_cases.random_matcher_args(B, N1, N2, seed=B + N2, device=dev)
+        out, _ = check_b(args, th, f"random {(B, N1, N2)}")
+        k_ms = device_ms(lambda: windowed_best2(*args, th))
+        v1_ms = device_ms(lambda: best2_v1(*args, th))
+        p_ms = device_ms(lambda: windowed_best2_plain(*args, th), reps=20, loops=3)
+        log(f"kernel B random {(B, N1, N2)} chi2_th={th} windows 3-60 px: equal, rows with a "
+            f"candidate={int((out[1] < 10_000).sum())}; device time: v1 {v1_ms:.5f} ms, "
+            f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
+    cases = kernel_cases.matcher_cases(dev)
+    for name, args, th in cases:
+        check_b(args, th, name)
+    log(f"kernel B adversarial set: {len(cases)} cases equal ({', '.join(n for n, _, _ in cases)})")
 
 
-def phase_slice(dev, card: str) -> dict:
+def gate_mask(args, th):
+    """(B, N1, N2) bool: the pairs that pass every gate (the plain rule)."""
+    _, _, v1, v2, pxy, xy2, win, lo, hi, o2, w2 = args
+    du = xy2[:, None, :, 0] - pxy[:, :, None, 0]
+    dv = xy2[:, None, :, 1] - pxy[:, :, None, 1]
+    ok = (du.abs() < win[..., None]) & (dv.abs() < win[..., None])
+    ok &= (o2[:, None, :] >= lo[..., None]) & (o2[:, None, :] <= hi[..., None])
+    ok &= v1[..., None] & v2[:, None, :]
+    if th > 0:
+        ok &= (du * du + dv * dv) * w2[:, None, :] <= th
+    return ok
+
+
+def visited_columns(args) -> tuple[int, int]:
+    """(columns scanned, rows that scan) of the binned kernel B, replicated in
+    float32 torch: the grid, the cell map, the dense switch. The kernel rounds
+    the box edges outward where this rounds to nearest, so a column on a cell
+    edge may count one cell off."""
+    _, _, v1, v2, pxy, xy2, win = args[:7]
+    total = rows = 0
+    for b in range(v1.shape[0]):
+        xy = xy2[b][v2[b] & torch.isfinite(xy2[b]).all(1)]
+        rv = v1[b] & (win[b] > 0) & torch.isfinite(pxy[b]).all(1)
+        rows += int(rv.sum())
+        nb = xy.shape[0]
+        if nb == 0 or not bool(rv.any()):
+            continue
+        g = max(1, min(32, int(math.sqrt(nb))))
+        lo, hi = xy.min(0).values, xy.max(0).values
+        scale = g / (hi - lo)
+        scale = torch.where((hi > lo) & torch.isfinite(scale), scale, 0.0)
+
+        def cell(v, axis):
+            t = torch.floor((v - lo[axis]) * scale[axis])
+            return torch.nan_to_num(t, nan=0.0).clamp(0, g - 1).long()
+
+        counts = torch.zeros((g + 1, g + 1), dtype=torch.int64, device=xy.device)
+        counts.index_put_((cell(xy[:, 1], 1) + 1, cell(xy[:, 0], 0) + 1),
+                          torch.ones(nb, dtype=torch.int64, device=xy.device), accumulate=True)
+        P = counts.cumsum(0).cumsum(1)
+        p, w = pxy[b][rv], win[b][rv]
+        x0, x1 = cell(p[:, 0] - w, 0), cell(p[:, 0] + w, 0)
+        y0, y1 = cell(p[:, 1] - w, 1), cell(p[:, 1] + w, 1)
+        box = P[y1 + 1, x1 + 1] - P[y0, x1 + 1] - P[y1 + 1, x0] + P[y0, x0]
+        dense = 2 * (x1 - x0 + 1) * (y1 - y0 + 1) > g * g
+        total += int(torch.where(dense, nb, box).sum())
+    return total, rows
+
+
+def phase_kernel_b_fuse(captured, dev) -> dict:
+    from weiner_slamit_v2_torch.ops.match_kernel import windowed_best2, windowed_best2_plain
+
+    args, th = list(captured[:11]), captured[11]
+    B, N1, N2 = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    _, err = check_b(args, th, f"the recorded fuse call {(B, N1, N2)}")
+    k_ms = device_ms(lambda: windowed_best2(*args, th))
+    v1_ms = device_ms(lambda: best2_v1(*args, th))
+    p_ms = device_ms(lambda: windowed_best2_plain(*args, th), reps=20, loops=3)
+    v1r, v2c = args[2], args[3]
+    n_rows = int(v1r.sum())
+    valid_pairs = int((v1r.sum(1) * v2c.sum(1)).sum())
+    passing = int(gate_mask(args, th).sum())
+    _, _, _, _, pxy, xy2, win = args[:7]
+    in_box = ((xy2[:, None, :, 0] - pxy[:, :, None, 0]).abs() < win[..., None]) & \
+             ((xy2[:, None, :, 1] - pxy[:, :, None, 1]).abs() < win[..., None]) & v2c[:, None, :]
+    n_box = int((in_box & v1r[..., None]).sum())
+    n_visit, n_scan = visited_columns(args)
+
+    # the bound at this call's data: bytes by ROW_*/COL_* above; operations:
+    # the gates on the columns in each valid row's window, and the distance
+    # on the pairs that pass every gate
+    usable = v1r & (win > 0) & torch.isfinite(pxy).all(-1)
+    n_cols = int(v2c.sum())
+    n_bytes = (int(usable.sum()) * ROW_BYTES + (n_rows - int(usable.sum())) * ROW_UNUSABLE_BYTES
+               + (B * N1 - n_rows) * ROW_INVALID_BYTES
+               + n_cols * COL_BYTES + (B * N2 - n_cols) * COL_INVALID_BYTES)
+    b_ms, b_by = bound(n_bytes, GATE_OPS_PER_PAIR * n_box + DIST_OPS_PER_PAIR * passing)
+    log(f"kernel B at the recorded fuse inputs: shape {(B, N1, N2)}, chi2_th={th}, "
+        f"windows {float(win[v1r].min()) if n_rows else 0:.3f}-"
+        f"{float(win[v1r].max()) if n_rows else 0:.3f} px; rows with valid1 {n_rows} of {B * N1} "
+        f"({n_rows / (B * N1):.4f}); valid (row, column) pairs {valid_pairs}; columns in a "
+        f"valid row's window {n_box / max(n_rows, 1):.3f} per row; columns the binned kernel "
+        f"visits {n_visit / max(n_scan, 1):.3f} per scanning row ({n_scan} rows); pairs passing "
+        f"every gate {passing}; bytes the call needs {n_bytes}; device time: v1 {v1_ms:.5f} ms, "
+        f"kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms")
+    return dict(name="windowed_best2", route="cuda",
+                source="weiner_slamit_v2_torch/csrc/windowed_best2.cu",
+                replaces="weiner_slamit_v2_tpu/ops/match_pallas.py:157",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, v1_ms=v1_ms)
+
+
+def phase_slice(dev, card: str):
     from weiner_slamit_v2_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
     from weiner_slamit_v2_torch.geometry.camera import Camera
     from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
     from weiner_slamit_v2_torch.io.evaluation import ate_rmse
     from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+    from weiner_slamit_v2_torch.tracking import local_mapping
     from weiner_slamit_v2_torch.tracking.system import System
 
     H, W, f = 480, 640, 500.0
@@ -157,19 +360,33 @@ def phase_slice(dev, card: str) -> dict:
     seq = make_synthetic_sequence(n_frames=N_FRAMES, h=H, w=W, seed=0, motion="orbit", K=K,
                                   motion_frames=164)
     images = [np.clip(fr.image, 0, 255).astype(np.uint8) for fr in seq.frames]
-    sys_ = System(cfg, Camera.create(f, f, 320.0, 240.0, width=W, height=H), device=dev)
+    sys_ = System(cfg, Camera.create(f, f, 320.0, 240.0, width=W, height=H))   # the card by default
+    check(sys_.device.type == dev.type and sys_.tracker.m.kf_pose.is_cuda, str(sys_.device))
 
+    # record the fuse's kernel-B call with the most targets (the latest on a tie)
+    real_best2, captured = local_mapping.windowed_best2, []
+
+    def recorder(*args):
+        out = real_best2(*args)
+        if not captured or args[0].shape[0] >= captured[0].shape[0]:
+            captured[:] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        return out
+
+    local_mapping.windowed_best2 = recorder
     fast_kernel.launches = 0
     match_kernel.launches = 0
     states, frame_ms = [], []
-    for img, fr in zip(images, seq.frames):
-        t0 = time.perf_counter()
-        out = sys_.track_monocular(img, fr.timestamp)
+    try:
+        for img, fr in zip(images, seq.frames):
+            t0 = time.perf_counter()
+            out = sys_.track_monocular(img, fr.timestamp)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(out.state)
+        sys_.finish()
         torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        states.append(out.state)
-    sys_.finish()
-    torch.cuda.synchronize()
+    finally:
+        local_mapping.windowed_best2 = real_best2
     launches = {"fast_score_nms": fast_kernel.launches, "windowed_best2": match_kernel.launches}
 
     init = next((i for i, s in enumerate(states) if s == "OK"), None)
@@ -189,11 +406,12 @@ def phase_slice(dev, card: str) -> dict:
     check(all(s == "OK" for s in states[init:]), f"lost after init: {states}")
     check(n_created >= 8, f"only {n_created} keyframes created")
     check(n_pass >= 4, f"only {n_pass} adopted mapping passes")
-    check(launches["fast_score_nms"] == 8 * N_FRAMES, str(launches))
+    check(launches["fast_score_nms"] == N_FRAMES, str(launches))   # one launch per frame
     check(launches["windowed_best2"] >= n_pass, str((launches, n_pass)))
     check(np.isfinite(Twc).all() and Twc.shape == (N_FRAMES - init, 4, 4), str(Twc.shape))
     check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
-    return launches
+    check(bool(captured), "the fuse never called kernel B")
+    return launches, captured
 
 
 def main() -> int:
@@ -208,21 +426,33 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    global _v1
     t0 = time.perf_counter()
+    v1_srcs = cuda_build.sources("v1")
+    cuda_build.build(cuda_build.sources() + v1_srcs)   # one nvcc each, all at once
     cuda_build.lib()
+    _v1 = cuda_build.load(v1_srcs, V1_SIGNATURES)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {cuda_build.build_seconds} s)")
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
     frame = np.clip(make_synthetic_sequence(n_frames=2, h=480, w=640, seed=0, motion="orbit")
                     .frames[1].image, 0, 255).astype(np.uint8)
-    kernels = [phase_kernel_a(frame, dev), phase_kernel_b(dev)]
-    launches = phase_slice(dev, card)
+    kern_a = phase_kernel_a(frame, dev)
+    phase_kernel_b(dev)
+    launches, captured = phase_slice(dev, card)
+    kern_b = phase_kernel_b_fuse(captured, dev)
+    kernels = [kern_a, kern_b]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        log(f"kernel {k['name']} on {card}: v1 design {k['v1_ms']:.5f} ms, this design "
+            f"{k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
+            f"({k['bound_by']}), share of the bound {k['bound_ms'] / k['ms']:.4f}, "
+            f"launches on the slice {k['launches']}")
     torch.cuda.synchronize()
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

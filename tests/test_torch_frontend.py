@@ -90,7 +90,7 @@ def jax_pair():
 def test_search_for_initialization_exact(jax_pair):
     (f1, f2), _ = jax_pair
     ij, dj = jmatcher.search_for_initialization(f1, f2, window=100.0, nn_ratio=0.9)
-    it, dt = matcher.search_for_initialization(features_from_numpy(f1), features_from_numpy(f2),
+    it, dt = matcher.search_for_initialization(features_from_numpy(f1, "cpu"), features_from_numpy(f2, "cpu"),
                                                window=100.0, nn_ratio=0.9)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
@@ -111,7 +111,7 @@ def test_match_with_window_exact(jax_pair):
         f1.desc, f2.desc, f1.valid, f2.valid, jnp.asarray(pred), f2.xy_und, jnp.asarray(win),
         octave2=f2.octave, octave_lo=jnp.asarray(lo), octave_hi=jnp.asarray(hi),
         angle1=f1.angle, angle2=f2.angle, **kw)
-    t1, t2 = features_from_numpy(f1), features_from_numpy(f2)
+    t1, t2 = features_from_numpy(f1, "cpu"), features_from_numpy(f2, "cpu")
     it, dt = matcher.match_with_window(
         t1.desc, t2.desc, t1.valid, t2.valid, torch.from_numpy(pred), t2.xy_und,
         torch.from_numpy(win), octave2=t2.octave, octave_lo=torch.from_numpy(lo),

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+from weiner_slamit_v2_torch.ops import fast_kernel, kernel_cases, match_kernel
 
 torch.set_num_threads(1)
 
@@ -73,6 +73,71 @@ def test_fast_plain_matches_jax(jx, name):
         assert (port > 0).sum() > 20
 
 
+def frame_levels():
+    """The 8-level pyramid of a 192x256 synthetic frame (levels 4-7 are
+    narrower than 128 px) and a separate 5x6 level, too small to hold a pixel
+    3 px from every border."""
+    from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+    from weiner_slamit_v2_torch.ops import pyramid
+
+    img = make_synthetic_sequence(n_frames=2, h=192, w=256, seed=11, motion="orbit").frames[1].image
+    img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).float()
+    tiny = np.random.default_rng(4).uniform(0, 255, (5, 6)).astype(np.float32)
+    return [l.contiguous() for l in pyramid.build_pyramid(img, 8, 1.2)] + [torch.from_numpy(tiny)]
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
+def test_fast_levels_plain_matches_jax(jx, ref):
+    """fast_score_nms_levels on CPU tensors, level for level, against the JAX
+    package's XLA nms_3x3(fast_score(., 0)) and its Pallas kernel."""
+    levels = frame_levels()
+    outs = fast_kernel.fast_score_nms_levels(levels)
+    assert len(outs) == len(levels)
+    for img, out in zip(levels, outs):
+        x = jx.jnp.asarray(img.numpy())
+        if ref == "xla":
+            want = jx.fast.nms_3x3(jx.fast.fast_score(x, 0.0))
+        else:
+            want = jx.fast_score_nms_pallas(x, interpret=True)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    assert all((o > 0).sum() > 20 for o in outs[:8])
+    assert not outs[8].any()
+
+
+def test_fast_levels_wrapper_contract():
+    """One call per list; the single-image wrapper is the one-level case;
+    bad inputs raise."""
+    levels = frame_levels()[5:]
+    for one, img in zip(fast_kernel.fast_score_nms_levels(levels), levels):
+        assert torch.equal(one, fast_kernel.fast_score_nms(img))
+    with pytest.raises(ValueError, match="levels"):
+        fast_kernel.fast_score_nms_levels([])
+    with pytest.raises(ValueError, match="levels"):
+        fast_kernel.fast_score_nms_levels(levels * 6)
+    with pytest.raises(ValueError, match="float32"):
+        fast_kernel.fast_score_nms_levels([levels[0], levels[1].double()])
+
+
+def test_extractor_runs_fast_once_per_frame(monkeypatch):
+    """The extractor hands every level with a budget to one
+    fast_score_nms_levels call per frame."""
+    from weiner_slamit_v2_torch.config import OrbConfig
+    from weiner_slamit_v2_torch.frontend import extractor
+
+    calls = []
+
+    def counting(levels):
+        calls.append([tuple(l.shape) for l in levels])
+        return fast_kernel.fast_score_nms_levels(levels)
+
+    monkeypatch.setattr(extractor, "fast_score_nms_levels", counting)
+    img = torch.from_numpy(blob_image(192, 256))
+    ex = extractor.OrbExtractor(OrbConfig(n_features=256), (192, 256))
+    feats = ex(img)
+    assert len(calls) == 1 and len(calls[0]) == sum(b > 0 for b in ex.budgets) == 8
+    assert int(feats.valid.sum()) > 20
+
+
 def matcher_inputs(seed=0, N1=200, N2=300):
     """The inputs of tests/test_pallas.py::TestWindowedMatcherPallas."""
     rng = np.random.default_rng(seed)
@@ -106,6 +171,28 @@ def test_windowed_best2_plain_matches_pallas(jx, seed, chi2_th):
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(o[0].numpy(), np.asarray(r))
     assert (out[1] < 10_000).sum() > 20
+
+
+def test_windowed_best2_rows_without_candidates(jx):
+    """Rows that no column can pass (valid1 false, window <= 0 or NaN, a
+    non-finite prediction) get the dense loop's fixed result (best_idx 0,
+    best_dist 10000, second_dist 10000), in the port as in the Pallas kernel;
+    the CUDA kernel writes it without any column work."""
+    inp = list(matcher_inputs(3))
+    inp[2] = inp[2].copy()
+    inp[2][:20] = False
+    inp[6] = inp[6].copy()
+    inp[6][20:30], inp[6][30:40] = 0.0, np.nan
+    inp[4] = inp[4].copy()
+    inp[4][40:50, 0] = np.inf
+    ref = jx.windowed_best2_pallas(*(jx.jnp.asarray(a) for a in inp[:10]), chi2_w=jx.jnp.asarray(inp[10]),
+                                   chi2_th=50.0, interpret=True)
+    out = match_kernel.windowed_best2(*port_args(tuple(inp)), 50.0)
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o[0].numpy(), np.asarray(r))
+    for o, fixed in zip(out, (0, 10_000, 10_000)):
+        assert (o[0, :50] == fixed).all()
+    assert (out[1][0, 50:] < 10_000).sum() > 20
 
 
 def test_windowed_best2_plain_batched_over_targets(jx):
@@ -164,3 +251,42 @@ def test_windowed_best2_kernel_matches_plain_on_card(cuda_device, B, N1, N2, th)
     assert match_kernel.launches == before + 1
     for o, r in zip(out, match_kernel.windowed_best2_plain(*args, th)):
         assert torch.equal(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["640x480_pyramid", "ragged", "constant", "checkerboard_plateau"])
+def test_fast_levels_kernel_one_launch_on_card(cuda_device, name):
+    """All levels in one launch, bit-equal to the plain version level by level."""
+    if name == "640x480_pyramid":
+        from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+        from weiner_slamit_v2_torch.ops import pyramid
+
+        img = make_synthetic_sequence(n_frames=2, h=480, w=640, seed=0, motion="orbit").frames[1].image
+        img = torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).to(cuda_device).float()
+        levels = [l.contiguous() for l in pyramid.build_pyramid(img, 8, 1.2)]
+    else:
+        levels = kernel_cases.fast_level_sets(cuda_device)[name]
+    before = fast_kernel.launches
+    outs = fast_kernel.fast_score_nms_levels(levels)
+    torch.cuda.synchronize()
+    assert fast_kernel.launches == before + 1
+    for lvl, (out, ref) in enumerate(zip(outs, fast_kernel.fast_score_nms_levels_plain(levels))):
+        assert torch.equal(out, ref), (name, lvl, tuple(out.shape), int((out != ref).sum()))
+
+
+@pytest.mark.cuda
+def test_windowed_best2_kernel_adversarial_on_card(cuda_device):
+    """The binned kernel against the plain version on the edge cases of
+    ops/kernel_cases.py (cell borders, |du| == win, windows <= 0 / NaN /
+    inf, non-finite predictions and columns, columns outside the image, all
+    rows or all columns invalid, duplicate columns, N2 in {1, 300, 777, 1024,
+    5000}, chi2 gate on and off)."""
+    for name, args, th in kernel_cases.matcher_cases(cuda_device):
+        out = match_kernel.windowed_best2(*args, th)
+        ref = match_kernel.windowed_best2_plain(*args, th)
+        torch.cuda.synchronize()
+        for field, o, r in zip(("best_idx", "best_dist", "second_dist"), out, ref):
+            assert torch.equal(o, r), (name, field, int((o != r).sum()))
+        if name.startswith("all_rows_invalid"):
+            for o, fixed in zip(out, (0, 10_000, 10_000)):
+                assert (o == fixed).all()

@@ -76,7 +76,7 @@ def test_convert_round_trip(jax_snapshot):
     arrays, *_ = jax_snapshot
     empty = jtypes.empty_map(jconfig.MapCapacityConfig(max_keyframes=4, max_map_points=64), 32)
     for src in (arrays, jmap_numpy(empty)):
-        m = map_from_numpy(src)
+        m = map_from_numpy(src, device="cpu")
         assert m.kf_desc.dtype == torch.int32
         back = map_to_numpy(m)
         assert set(back) == set(src)
@@ -116,7 +116,7 @@ def test_mapping_step_matches_jax(jax_snapshot):
     arrays, kf, ref, consts = jax_snapshot
     cfg = small_config(tconfig)
     Kt, sf, s2, is2 = (torch.from_numpy(a) for a in consts)
-    out = map_to_numpy(mapping_step(map_from_numpy(arrays), kf, Kt, sf, s2, is2, cfg))
+    out = map_to_numpy(mapping_step(map_from_numpy(arrays, device="cpu"), kf, Kt, sf, s2, is2, cfg))
     for name in ("kf_obs", "mp_valid", "kf_valid"):
         agree = (out[name] == ref[name]).mean()
         assert agree >= 0.995, (name, agree)

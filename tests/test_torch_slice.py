@@ -57,7 +57,7 @@ def runs():
     js.finish()
 
     cfg_t = small_config(tconfig)
-    ts = System(cfg_t, Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H))
+    ts = System(cfg_t, Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H), device="cpu")
     ts.tracker.init_draws = jax_draws(cfg_t.seed)
     t_states = [ts.track_monocular(f.image, f.timestamp).state for f in seq.frames]
     ts.finish()
@@ -111,6 +111,7 @@ def test_unported_configurations_raise():
     cfg = small_config(tconfig)
     cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
     with pytest.raises(NotImplementedError, match="A.8"):
-        System(cfg.replace(tracking=tconfig.TrackingConfig(abortable_ba=True)), cam)
+        System(cfg.replace(tracking=tconfig.TrackingConfig(abortable_ba=True)), cam, device="cpu")
     with pytest.raises(NotImplementedError, match="A.7"):
-        System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam)
+        System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam,
+               device="cpu")

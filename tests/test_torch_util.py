@@ -64,3 +64,44 @@ def test_fma_rounds_once():
     # a*b = 1 + 2^-11 + 2^-24: rounding the product first loses the 2^-24
     assert np.float32(a * b) + c == 0.0
     assert float(util.fma(torch.tensor(a), torch.tensor(b), torch.tensor(c))) == 2.0**-24
+
+
+def test_resolve_device():
+    """None means the card; anything else is taken as given."""
+    assert util.resolve_device(None) == torch.device("cuda")
+    assert util.resolve_device("cpu") == torch.device("cpu")
+    assert util.resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+def test_entry_points_default_to_the_card():
+    """System, Tracker, empty_map, map_from_numpy and features_from_numpy
+    build their tensors on the card when no device is given: without one they
+    fail instead of falling back to the CPU."""
+    from weiner_slamit_v2_torch.config import MapCapacityConfig, SlamConfig, TrackingConfig
+    from weiner_slamit_v2_torch.geometry.camera import Camera
+    from weiner_slamit_v2_torch.slam_map import convert, types
+    from weiner_slamit_v2_torch.tracking.system import System
+    from weiner_slamit_v2_torch.tracking.tracker import Tracker
+
+    cap = MapCapacityConfig(max_keyframes=2, max_map_points=8)
+    cfg = SlamConfig(capacity=cap, tracking=TrackingConfig(abortable_ba=False))
+    cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=320, height=240)
+    arrays = convert.map_to_numpy(types.empty_map(cap, 4, device="cpu"))
+    feats = {"xy": np.zeros((3, 2), np.float32), "xy_und": np.zeros((3, 2), np.float32),
+             "response": np.zeros(3, np.float32), "angle": np.zeros(3, np.float32),
+             "octave": np.zeros(3, np.int32), "desc": np.zeros((3, 8), np.uint32),
+             "valid": np.ones(3, bool)}
+    builders = [
+        lambda: System(cfg, cam).tracker.m.kf_pose,
+        lambda: Tracker(cfg, cam).m.kf_pose,
+        lambda: types.empty_map(cap, 4).kf_pose,
+        lambda: convert.map_from_numpy(arrays).kf_pose,
+        lambda: convert.features_from_numpy(feats).xy,
+    ]
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+                build()
+    assert System(cfg, cam, device="cpu").tracker.m.kf_pose.device.type == "cpu"

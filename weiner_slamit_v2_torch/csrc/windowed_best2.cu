@@ -1,4 +1,5 @@
-// Gated Hamming matcher (best + second-best) for Hopper (sm_90a).
+// Gated Hamming matcher (best + second-best) for Hopper (sm_90a), with the
+// target's columns binned in a grid in shared memory.
 //
 // Replaces the Pallas TPU kernel weiner_slamit_v2_tpu/ops/match_pallas.py
 // (windowed_best2_pallas / _match_kernel). Plain twin and wrapper:
@@ -7,122 +8,324 @@
 //
 // Per row i of batch b, over every column j that passes every gate
 //   valid1[i] && valid2[j] && |du| < win[i] && |dv| < win[i]
-//   && lo[i] <= oct2[j] <= hi[i] && ((du*du + dv*dv) * w2[j] <= th || th <= 0)
+//   && lo[i] <= oct2[j] <= hi[i] && ((du*du + dv*dv) * w2[j] <= th || !chi2_on)
 // (du = x2[j] - px[i], dv = y2[j] - py[i]), the distance is
 // sum_w popc(d1[i][w] ^ d2[j][w]); a failing column counts as 10000. The
 // packed key dist * N2 + j breaks ties toward the smaller column. Outputs
-// best_idx, best_dist and second_dist (clamped to 10000).
+// best_idx, best_dist and second_dist (clamped to 10000). A row that no
+// column passes (valid1 false, a window <= 0 or NaN, a non-finite
+// prediction, or simply no column in its box) gets the dense loop's result
+// (best_idx 0, best_dist 10000, second_dist 10000) without any column work.
 //
-// What bounds it on the card: the integer XOR/popcount work (N1 * N2 * 8
-// per target) and re-reading the column data. Design: one thread owns one
-// row and keeps its 8 descriptor words and gates in registers; the CTA
-// stages the target's column data (descriptors, xy, octave, validity, chi2
-// weight) in shared memory in chunks of 128 columns, so each column is read
-// from device memory once per 128 rows; every thread keeps a running packed
-// min and second min. Nothing but the three (B, N1) vectors is written.
-// The chi2 product uses __fmul_rn/__fadd_rn so that nvcc cannot contract
-// it into an FMA: the gate then rounds exactly as the plain version does.
+// What bounds it on the card: the bytes (each row's 53 B and each target's
+// 49 B per column, read once) and, in the dense formulation, the gate
+// arithmetic on every (row, column) pair. The fuse's windows are at most
+// 3 * 1.2^7 = 10.7 px, so well under 1% of a keyframe's columns fall in a
+// row's box: the dense gate work is almost all wasted.
+// What the design does about it:
+//  * each CTA stages a chunk of up to 1024 of its target's columns in dynamic
+//    shared memory (descriptors, xy, octave, chi2 weight: 61 KB with the grid)
+//    and buckets the valid, finite ones by a G x G cell grid over their own
+//    extent (G = sqrt(count), at most 32) with a counting sort on shared
+//    counters; the order inside a cell does not matter, since the packed-key
+//    min does not depend on the order of the visits;
+//  * each valid row scans only the cells its box [px - win, px + win] x
+//    [py - win, py + win] overlaps: per grid row one contiguous run of the
+//    sorted columns. The unchanged gates (__fmul_rn / __fadd_rn, so that the
+//    chi2 test rounds as the plain version does) run on those columns alone;
+//  * the cell range is exact at the edges: the box is rounded outward
+//    (__fsub_rd / __fadd_ru), columns and box edges go through one monotone
+//    float map to cells, clamped before the conversion to int, so every column
+//    that passes |du| < win lies in a scanned cell. Non-finite or invalid
+//    columns can pass no gate and are not binned. A box that covers more than
+//    half of the cells (a huge or infinite window) takes the dense scan of
+//    every binned column instead, in the same kernel;
+//  * the staging is one round trip: every thread issues cp.async copies for
+//    all of its columns (and loads its own row) before it waits, so the
+//    latency of the loads overlaps; the extent reduction is one pass over
+//    (xmin, -xmax, ymin, -ymax, count), and the prefix sum over the cells is
+//    block-wide;
+//  * 4 threads per row, 128 rows per CTA: the 4 take every 4th candidate
+//    column of the row and merge their (min, second min) pairs with warp
+//    shuffles at the end. The row scan is a chain of dependent shared-memory
+//    reads, and a warp waits for its slowest row, so splitting each row 4 ways
+//    cuts that chain; the 512 threads also stage the chunk 2 columns each. A
+//    fuse pass of 20 targets x 1024 rows is 160 CTAs, one wave on 132 SMs.
+//    N2 beyond one chunk is staged chunk by chunk, each thread keeping its
+//    running min and second min in registers.
+// ptxas: 50 registers, 320 B static + 61,448 B dynamic shared memory, no
+// spills.
 
 #include <climits>
+#include <cstdint>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int ROWS = 128;   // threads (rows) per CTA
-constexpr int CHUNK = 128;  // columns staged per pass
+constexpr int LANES = 4;               // threads that share one row's candidate columns
+constexpr int ROWS = 128;              // rows per CTA
+constexpr int THREADS = ROWS * LANES;
+constexpr int CHUNK = 1024;            // columns staged per pass
+constexpr int PER_THREAD = CHUNK / THREADS;
+constexpr int GMAX = 32;               // cells per axis at most
+constexpr int NCELL = GMAX * GMAX;
+constexpr int CELLS_PER_THREAD = NCELL / THREADS;
 constexpr int INVALID = 10000;
+constexpr unsigned short NOT_BINNED = 0xFFFF;
+constexpr int WARPS = THREADS / 32;
+constexpr size_t SMEM = CHUNK * (32 + 8 + 4 + 4 + 2 + 2) + 2 * (NCELL + 1) * 4;
 
-__global__ void windowed_best2_kernel(
+// the cell of coordinate v: one monotone map for columns and box edges alike
+__device__ __forceinline__ int cell_of(float v, float v0, float scale, int g) {
+  const float t = floorf(__fmul_rn(__fsub_rn(v, v0), scale));
+  return static_cast<int>(fminf(fmaxf(t, 0.f), static_cast<float>(g - 1)));  // NaN -> 0
+}
+
+__global__ void __launch_bounds__(THREADS)
+windowed_best2_kernel(
     const int* __restrict__ d1, const unsigned char* __restrict__ v1,
     const float* __restrict__ pxy, const float* __restrict__ win,
     const int* __restrict__ lo, const int* __restrict__ hi,
     const int* __restrict__ d2, const unsigned char* __restrict__ v2,
     const float* __restrict__ xy2, const int* __restrict__ oct2,
-    const float* __restrict__ w2, float th,
+    const float* __restrict__ w2, float th, int chi2_on,
     int* __restrict__ best_idx, int* __restrict__ best_dist,
-    int* __restrict__ second_dist, int N1, int N2) {
-  __shared__ unsigned sd[CHUNK][9];  // 8 words + pad (bank spread)
-  __shared__ float sx[CHUNK], sy[CHUNK], sw[CHUNK];
-  __shared__ int so[CHUNK];
-  __shared__ unsigned char sv[CHUNK];
+    int* __restrict__ second_dist, int N1, int N2, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* sd = reinterpret_cast<uint4*>(smem);                       // CHUNK x 2
+  float2* sxy = reinterpret_cast<float2*>(smem + CHUNK * 32);
+  int* so = reinterpret_cast<int*>(smem + CHUNK * 40);
+  float* sw = reinterpret_cast<float*>(smem + CHUNK * 44);
+  int* start = reinterpret_cast<int*>(smem + CHUNK * 48);          // NCELL + 1
+  int* cursor = start + NCELL + 1;                                 // NCELL + 1
+  unsigned short* order = reinterpret_cast<unsigned short*>(cursor + NCELL + 1);
+  unsigned short* scell = order + CHUNK;
+  __shared__ float red_f[WARPS][4];
+  __shared__ int red_i[WARPS];
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = tid % LANES;   // this thread takes every LANES-th candidate of its row
   const int b = blockIdx.y;
-  const int i = blockIdx.x * ROWS + threadIdx.x;
+  const int i = blockIdx.x * ROWS + tid / LANES;
+
+  // this thread's row (shared by LANES consecutive lanes), loaded before the
+  // columns so that both are in flight
   const bool row_in = i < N1;
   const long r = static_cast<long>(b) * N1 + (row_in ? i : 0);
-
-  unsigned q[8];
+  bool rv = row_in && v1[r];
+  const float px = pxy[r * 2], py = pxy[r * 2 + 1], wr = win[r];
+  const int olo = lo[r], ohi = hi[r];
+  unsigned qd[8];
 #pragma unroll
-  for (int w = 0; w < 8; ++w) q[w] = row_in ? static_cast<unsigned>(d1[r * 8 + w]) : 0u;
-  const bool rv = row_in && v1[r];
-  const float px = row_in ? pxy[r * 2] : 0.f;
-  const float py = row_in ? pxy[r * 2 + 1] : 0.f;
-  const float wr = row_in ? win[r] : 0.f;
-  const int olo = row_in ? lo[r] : 0;
-  const int ohi = row_in ? hi[r] : 0;
-  const bool chi2_on = th > 0.f;
+  for (int w = 0; w < 8; ++w) qd[w] = static_cast<unsigned>(d1[r * 8 + w]);
+  rv = rv && wr > 0.f && isfinite(px) && isfinite(py);   // else no column can pass
 
-  int m1 = INT_MAX, m2 = INT_MAX;  // running packed min / second min
-  const long cb = static_cast<long>(b) * N2;
+  int m1 = INT_MAX, m2 = INT_MAX;   // running packed min / second min
   for (int j0 = 0; j0 < N2; j0 += CHUNK) {
     const int n = min(CHUNK, N2 - j0);
-    __syncthreads();
-    for (int t = threadIdx.x; t < n * 8; t += ROWS) {
-      sd[t / 8][t % 8] = static_cast<unsigned>(d2[(cb + j0) * 8 + t]);
-    }
-    for (int t = threadIdx.x; t < n; t += ROWS) {
-      const long c = cb + j0 + t;
-      sx[t] = xy2[c * 2];
-      sy[t] = xy2[c * 2 + 1];
-      so[t] = oct2[c];
-      sv[t] = v2[c];
-      sw[t] = w2[c];
-    }
-    __syncthreads();
-    if (!row_in) continue;
-    for (int t = 0; t < n; ++t) {
-      const float du = __fsub_rn(sx[t], px);
-      const float dv = __fsub_rn(sy[t], py);
-      bool ok = rv && sv[t] && fabsf(du) < wr && fabsf(dv) < wr &&
-                so[t] >= olo && so[t] <= ohi;
-      if (ok && chi2_on) {
-        const float c2 = __fmul_rn(__fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)), sw[t]);
-        ok = c2 <= th;
-      }
-      int dist = INVALID;
-      if (ok) {
-        dist = 0;
+    const long cb = static_cast<long>(b) * N2 + j0;
+    __syncthreads();   // the previous chunk's scans are done with the buffers
+
+    // 1. stage the chunk with asynchronous copies; the valid flags in registers
+    unsigned char vv[PER_THREAD];
 #pragma unroll
-        for (int w = 0; w < 8; ++w) dist += __popc(q[w] ^ sd[t][w]);
+    for (int u = 0; u < PER_THREAD; ++u) {
+      const int t = tid + u * THREADS;
+      vv[u] = 0;
+      if (t >= n) continue;
+      const long c = cb + t;
+      if (vec) {
+        __pipeline_memcpy_async(&sd[2 * t], d2 + c * 8, 16);
+        __pipeline_memcpy_async(&sd[2 * t + 1], d2 + c * 8 + 4, 16);
+        __pipeline_memcpy_async(&sxy[t], xy2 + c * 2, 8);
+      } else {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          __pipeline_memcpy_async(reinterpret_cast<int*>(&sd[2 * t]) + w, d2 + c * 8 + w, 4);
+        }
+        __pipeline_memcpy_async(&sxy[t].x, xy2 + c * 2, 4);
+        __pipeline_memcpy_async(&sxy[t].y, xy2 + c * 2 + 1, 4);
       }
-      const int code = dist * N2 + j0 + t;
-      if (code < m1) {
-        m2 = m1;
-        m1 = code;
-      } else if (code < m2) {
-        m2 = code;
+      __pipeline_memcpy_async(&so[t], oct2 + c, 4);
+      __pipeline_memcpy_async(&sw[t], w2 + c, 4);
+      vv[u] = v2[c];
+    }
+    __pipeline_commit();
+    for (int k = tid; k <= NCELL; k += THREADS) start[k] = 0;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // 2. the extent of the binnable columns (valid, finite): one reduction of
+    //    (xmin, -xmax, ymin, -ymax) and the count
+    float e[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+    int nb = 0;
+#pragma unroll
+    for (int u = 0; u < PER_THREAD; ++u) {
+      const int t = tid + u * THREADS;
+      if (t >= n) continue;
+      const float2 c = sxy[t];
+      const bool binnable = vv[u] && isfinite(c.x) && isfinite(c.y);
+      scell[t] = binnable ? 0 : NOT_BINNED;
+      if (binnable) {
+        e[0] = fminf(e[0], c.x); e[1] = fminf(e[1], -c.x);
+        e[2] = fminf(e[2], c.y); e[3] = fminf(e[3], -c.y);
+        ++nb;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) e[k] = fminf(e[k], __shfl_xor_sync(0xffffffffu, e[k], o));
+      nb += __shfl_xor_sync(0xffffffffu, nb, o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) red_f[warp][k] = e[k];
+      red_i[warp] = nb;
+    }
+    __syncthreads();
+    nb = red_i[0];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) e[k] = red_f[0][k];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      nb += red_i[w];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) e[k] = fminf(e[k], red_f[w][k]);
+    }
+    const float xmin = e[0], xmax = -e[1], ymin = e[2], ymax = -e[3];
+    const int g = max(1, min(GMAX, static_cast<int>(sqrtf(static_cast<float>(nb)))));
+    float sx = static_cast<float>(g) / (xmax - xmin);
+    float sy = static_cast<float>(g) / (ymax - ymin);
+    if (!(xmax > xmin) || !isfinite(sx)) sx = 0.f;   // one cell wide (also for nb == 0)
+    if (!(ymax > ymin) || !isfinite(sy)) sy = 0.f;
+
+    // 3. counting sort of the binnable columns by cell: counts, a block-wide
+    //    prefix sum, then each column takes a slot of its cell
+#pragma unroll
+    for (int u = 0; u < PER_THREAD; ++u) {
+      const int t = tid + u * THREADS;
+      if (t >= n || scell[t] == NOT_BINNED) continue;
+      const int cell = cell_of(sxy[t].y, ymin, sy, g) * g + cell_of(sxy[t].x, xmin, sx, g);
+      scell[t] = static_cast<unsigned short>(cell);
+      atomicAdd(&start[cell + 1], 1);
+    }
+    __syncthreads();
+    int cnt[CELLS_PER_THREAD];   // this thread's cells k = 1 + CELLS_PER_THREAD * tid + c
+    int run = 0;
+#pragma unroll
+    for (int c = 0; c < CELLS_PER_THREAD; ++c) {
+      run += start[1 + CELLS_PER_THREAD * tid + c];
+      cnt[c] = run;
+    }
+    int incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) red_i[warp] = incl;
+    __syncthreads();
+    int base = incl - run;
+    for (int w = 0; w < warp; ++w) base += red_i[w];
+#pragma unroll
+    for (int c = 0; c < CELLS_PER_THREAD; ++c) {
+      const int k = 1 + CELLS_PER_THREAD * tid + c;
+      start[k] = cursor[k] = base + cnt[c];
+    }
+    if (tid == 0) cursor[0] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < PER_THREAD; ++u) {
+      const int t = tid + u * THREADS;
+      if (t >= n || scell[t] == NOT_BINNED) continue;
+      order[atomicAdd(&cursor[scell[t]], 1)] = static_cast<unsigned short>(t);
+    }
+    __syncthreads();
+
+    // 4. the row scans the cells its box overlaps (per grid row, one run of
+    //    the sorted columns), or every binned column if the box covers more
+    //    than half of the cells
+    if (!rv || nb == 0) continue;
+    const int cx0 = cell_of(__fsub_rd(px, wr), xmin, sx, g);
+    const int cx1 = cell_of(__fadd_ru(px, wr), xmin, sx, g);
+    const int cy0 = cell_of(__fsub_rd(py, wr), ymin, sy, g);
+    const int cy1 = cell_of(__fadd_ru(py, wr), ymin, sy, g);
+    const bool dense = 2 * (cx1 - cx0 + 1) * (cy1 - cy0 + 1) > g * g;
+    for (int cy = dense ? 0 : cy0; cy <= (dense ? 0 : cy1); ++cy) {
+      const int k0 = dense ? 0 : start[cy * g + cx0];
+      const int k1 = dense ? nb : start[cy * g + cx1 + 1];
+      for (int k = k0 + q; k < k1; k += LANES) {
+        const int t = order[k];
+        const float2 c = sxy[t];
+        const float du = __fsub_rn(c.x, px);
+        const float dv = __fsub_rn(c.y, py);
+        bool ok = fabsf(du) < wr && fabsf(dv) < wr && so[t] >= olo && so[t] <= ohi;
+        if (ok && chi2_on) {
+          ok = __fmul_rn(__fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)), sw[t]) <= th;
+        }
+        if (!ok) continue;
+        const uint4 a = sd[2 * t], z = sd[2 * t + 1];
+        const int dist = __popc(qd[0] ^ a.x) + __popc(qd[1] ^ a.y) + __popc(qd[2] ^ a.z) +
+                         __popc(qd[3] ^ a.w) + __popc(qd[4] ^ z.x) + __popc(qd[5] ^ z.y) +
+                         __popc(qd[6] ^ z.z) + __popc(qd[7] ^ z.w);
+        const int code = dist * N2 + j0 + t;
+        if (code < m1) {
+          m2 = m1;
+          m1 = code;
+        } else if (code < m2) {
+          m2 = code;
+        }
       }
     }
   }
-  if (row_in) {
+
+  // the row's LANES threads merge their (min, second min) pairs; codes are
+  // distinct (one per column), so the union's two smallest are exact
+#pragma unroll
+  for (int o = 1; o < LANES; o <<= 1) {
+    const int b1 = __shfl_xor_sync(0xffffffffu, m1, o);
+    const int b2 = __shfl_xor_sync(0xffffffffu, m2, o);
+    m2 = min(max(m1, b1), min(m2, b2));
+    m1 = min(m1, b1);
+  }
+  if (!row_in || q != 0) return;
+  if (m1 == INT_MAX) {   // no column passed: the dense loop's fixed result
+    best_idx[r] = 0;
+    best_dist[r] = INVALID;
+    second_dist[r] = INVALID;
+  } else {
     best_idx[r] = m1 % N2;
     best_dist[r] = m1 / N2;
-    second_dist[r] = min(m2 / N2, INVALID);
+    second_dist[r] = m2 == INT_MAX ? INVALID : min(m2 / N2, INVALID);
   }
 }
 
 }  // namespace
 
+// C signature (ops/cuda_build.py SIGNATURES): the row data (d1, v1, pxy, win,
+// lo, hi), the column data (d2, v2, xy2, oct2, w2), th, chi2_on, the outputs
+// (best_idx, best_dist, second_dist), B, N1, N2, stream.
 extern "C" int windowed_best2_launch(
     const int* d1, const unsigned char* v1, const float* pxy, const float* win,
     const int* lo, const int* hi, const int* d2, const unsigned char* v2,
-    const float* xy2, const int* oct2, const float* w2, float th,
-    int* best_idx, int* best_dist, int* second_dist, int B, int N1, int N2,
-    void* stream) {
+    const float* xy2, const int* oct2, const float* w2, float th, int chi2_on,
+    int* best_idx, int* best_dist, int* second_dist, int B, int N1, int N2, void* stream) {
+  if (B < 1 || N1 < 1 || N2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        windowed_best2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int vec = ((reinterpret_cast<std::uintptr_t>(d2) & 15) == 0 &&
+                   (reinterpret_cast<std::uintptr_t>(xy2) & 7) == 0) ? 1 : 0;
   dim3 grid((N1 + ROWS - 1) / ROWS, B);
-  windowed_best2_kernel<<<grid, ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
-      d1, v1, pxy, win, lo, hi, d2, v2, xy2, oct2, w2, th, best_idx, best_dist,
-      second_dist, N1, N2);
+  windowed_best2_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      d1, v1, pxy, win, lo, hi, d2, v2, xy2, oct2, w2, th, chi2_on, best_idx, best_dist,
+      second_dist, N1, N2, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,8 @@
 (port of weiner_slamit_v2_tpu/frontend/extractor.py;
 ORBextractor::operator(), src/ORBextractor.cc:1064-1136).
 
-Every pyramid level goes through kernel A (ops/fast_kernel.py) on the
-card; the output is the fixed-size, padded ``FrameFeatures`` set.
+All pyramid levels go through kernel A (ops/fast_kernel.py) in one launch
+on the card; the output is the fixed-size, padded ``FrameFeatures`` set.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from ..config import OrbConfig
 from ..ops import orb, pyramid, topk_grid
-from ..ops.fast_kernel import fast_score_nms
+from ..ops.fast_kernel import fast_score_nms_levels
 from ..ops.pattern import EDGE_MARGIN
 
 
@@ -76,14 +76,15 @@ class OrbExtractor:
     def extract_levels(self, levels: list[torch.Tensor]) -> FrameFeatures:
         """Features from an already built pyramid."""
         cfg = self.cfg
+        used = [lvl for lvl in range(len(levels)) if self.budgets[lvl] > 0]
+        # threshold-0 fused FAST+NMS of every used level in one kernel launch
+        # (each level's score depends on that level alone); select_keypoints
+        # applies the low threshold itself (NMS commutes with a monotone
+        # threshold)
+        scores = fast_score_nms_levels([levels[lvl].contiguous() for lvl in used])
         parts = []
-        for lvl, img in enumerate(levels):
-            budget = self.budgets[lvl]
-            if budget == 0:
-                continue
-            # threshold-0 fused FAST+NMS; select_keypoints applies the low
-            # threshold itself (NMS commutes with a monotone threshold)
-            score = fast_score_nms(img.contiguous())
+        for lvl, score in zip(used, scores):
+            img, budget = levels[lvl], self.budgets[lvl]
             xy, resp, valid = topk_grid.select_keypoints(
                 score, budget=budget, cell_size=cfg.cell_size,
                 high_threshold=cfg.fast_threshold, low_threshold=cfg.fast_min_threshold,

@@ -1,40 +1,56 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-``nvcc`` compiles every source under ``csrc/`` into one shared library with
-a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), written to
-``_build/`` beside this package (git-ignored) and loaded with ``ctypes``.
-Nothing is built at import time: the CPU tests import every module on
-machines without ``nvcc``. A later call reuses the library while it is newer
-than every source.
+``nvcc`` compiles each source in ``csrc/`` into its own shared library with a
+plain C interface (``-gencode arch=compute_90a,code=sm_90a``). All ``nvcc``
+processes start together, so the build takes as long as the slowest source.
+The libraries go to ``_build/`` beside this package (git-ignored) and are
+loaded with ``ctypes``. Nothing is built at import time: the CPU tests import
+every module on machines without ``nvcc``. A later call reuses a library
+while it is newer than its source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libslam_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every C entry point, in the order of its C signature
+SIGNATURES = {
+    # (n_levels, imgs[], outs[], heights[], widths[], stream); the arrays live on the host
+    "fast_score_nms_levels_launch": [_I, _P, _P, _P, _P, _P],
+    # (d1, v1, pxy, win, lo, hi, d2, v2, xy2, oct2, w2, th, chi2_on,
+    #  best_idx, best_dist, second_dist, B, N1, N2, stream)
+    "windowed_best2_launch": [_P] * 11 + [_F, _I] + [_P] * 3 + [_I] * 3 + [_P],
+}
 
 _lib = None
 build_seconds: float | None = None
 build_log: str = ""
 
 
-def _sources() -> list[str]:
-    return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
-    )
+def sources(subdir: str = "") -> list[str]:
+    """The .cu files directly in csrc/ (or in csrc/<subdir>/)."""
+    return sorted(glob.glob(os.path.join(CSRC, subdir, "*.cu")))
+
+
+def _lib_path(src: str) -> str:
+    rel = os.path.relpath(src, CSRC)
+    return os.path.join(BUILD_DIR, "lib" + rel.replace(os.sep, "_")[:-3] + ".so")
 
 
 def _nvcc() -> str:
@@ -45,45 +61,62 @@ def _nvcc() -> str:
     return cand
 
 
-def build() -> str:
-    """Compile csrc/*.cu into LIB_PATH unless it is up to date."""
+def build(srcs: list[str]) -> list[str]:
+    """Compile every stale source of ``srcs``, one nvcc process each, all at
+    once; returns the libraries' paths."""
     global build_seconds, build_log
-    srcs = _sources()
-    if (
-        os.path.exists(LIB_PATH)
-        and os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in srcs)
-    ):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    stale = [s for s in srcs if not (os.path.exists(_lib_path(s))
+                                     and os.path.getmtime(_lib_path(s)) >= os.path.getmtime(s))]
+    if stale:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        jobs = []
+        for s in stale:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, s], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((s, tmp, proc))
+        logs, failed = [], []
+        for s, tmp, proc in jobs:
+            out = proc.communicate()[0]
+            logs.append(f"== {os.path.relpath(s, CSRC)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.relpath(s, CSRC)} ({proc.returncode})")
+                os.unlink(tmp)
+            else:
+                os.replace(tmp, _lib_path(s))
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    return [_lib_path(s) for s in srcs]
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def load(srcs: list[str], signatures: dict) -> types.SimpleNamespace:
+    """Build ``srcs`` and return their C entry points named in ``signatures``
+    (name -> argtypes) as ctypes functions."""
+    fns = {}
+    for path in build(srcs):
+        cdll = ctypes.CDLL(path)
+        for name, argtypes in signatures.items():
+            if hasattr(cdll, name):
+                fn = getattr(cdll, name)
+                fn.argtypes, fn.restype = argtypes, _I
+                fns[name] = fn
+    missing = set(signatures) - set(fns)
+    if missing:
+        raise RuntimeError(f"CUDA entry points missing from the build: {sorted(missing)}")
+    return types.SimpleNamespace(**fns)
+
+
+def lib() -> types.SimpleNamespace:
+    """Every C entry point of csrc/*.cu, as ctypes functions (built on first
+    call)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(build())
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.fast_score_nms_launch.argtypes = [P, P, I, I, P]
-        L.windowed_best2_launch.argtypes = [
-            P, P, P, P, P, P, P, P, P, P, P, F, P, P, P, I, I, I, P,
-        ]
-        L.fast_score_nms_launch.restype = I
-        L.windowed_best2_launch.restype = I
-        _lib = L
+        _lib = load(sources(), SIGNATURES)
     return _lib
 
 

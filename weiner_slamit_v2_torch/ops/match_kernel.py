@@ -75,11 +75,14 @@ def windowed_best2(desc1, desc2, valid1, valid2, pred_xy, xy2, window,
     if min(B, N1, N2) == 0:
         raise ValueError(f"windowed_best2: empty problem {(B, N1, N2)}")
     outs = [torch.empty((B, N1), dtype=torch.int32, device=dev) for _ in range(3)]
-    # the C entry point takes the row data first, then the column data
+    # C order: the row data (d1, v1, pxy, win, lo, hi), the column data (d2,
+    # v2, xy2, oct2, w2), th, chi2_on, the outputs (best_idx, best_dist,
+    # second_dist), B, N1, N2, stream
     row_col = (desc1, valid1, pred_xy, window, oct_lo, oct_hi, desc2, valid2, xy2, octave2, chi2_w)
-    ptrs = [t.data_ptr() for t in row_col]
+    chi2_on = chi2_th > 0   # decided in double precision, as the plain version does
     err = cuda_build.lib().windowed_best2_launch(
-        *ptrs, float(chi2_th), *(o.data_ptr() for o in outs), B, N1, N2,
+        *(t.data_ptr() for t in row_col), float(chi2_th) if chi2_on else 0.0, int(chi2_on),
+        *(o.data_ptr() for o in outs), B, N1, N2,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(err, "windowed_best2")

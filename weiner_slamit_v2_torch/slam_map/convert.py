@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..frontend.extractor import FrameFeatures
+from ..util import resolve_device
 from .types import SlamMap
 
 _DESC_FIELDS = ("kf_desc", "mp_desc", "desc")
@@ -23,7 +24,7 @@ def _to_torch(name: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
     if name in _DESC_FIELDS:
         a = np.ascontiguousarray(a).view(np.int32)
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.array(a)).to(resolve_device(device))
 
 
 def map_from_numpy(arrays: dict, device=None) -> SlamMap:

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import MapCapacityConfig
-from ..util import put
+from ..util import put, resolve_device
 
 
 @dataclass
@@ -80,7 +80,7 @@ class SlamMap:
 def empty_map(cap: MapCapacityConfig, n_features: int, device=None) -> SlamMap:
     K, M, O, N = cap.max_keyframes, cap.max_map_points, cap.max_obs_per_point, n_features
     f32, i32 = torch.float32, torch.int32
-    kw = dict(device=device)
+    kw = dict(device=resolve_device(device))
     return SlamMap(
         kf_pose=torch.eye(4, dtype=f32, **kw).repeat(K, 1, 1),
         kf_valid=torch.zeros(K, dtype=torch.bool, **kw),

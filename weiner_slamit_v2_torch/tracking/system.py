@@ -25,6 +25,7 @@ from ..config import SlamConfig
 from ..geometry import se3
 from ..geometry.camera import Camera
 from ..io import trajectory as traj_io
+from ..util import resolve_device
 from .local_mapping import mapping_step
 from .tracker import Tracker, TrackerOutput
 
@@ -43,7 +44,7 @@ class System:
         cc = self.cfg.camera
         self.camera = camera or Camera.create(cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2,
                                               cc.p1, cc.p2, cc.k3, cc.width, cc.height)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.tracker = Tracker(self.cfg, self.camera, self.device)
         self.enable_mapping = enable_mapping
         self.mapping_neighbors = (mapping_neighbors if mapping_neighbors is not None

@@ -28,7 +28,7 @@ from ..optim.pose_opt import optimize_pose
 from ..slam_map import types as mt
 from ..slam_map.point_stats import predict_octave, refresh_point_stats
 from ..slam_map.types import SlamMap
-from ..util import nanmedian, put, topk
+from ..util import nanmedian, put, resolve_device, topk
 
 NO_IMAGES_YET = "NO_IMAGES_YET"
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -308,7 +308,7 @@ class Tracker:
             raise NotImplementedError(f"sensor={cfg.sensor!r} is not ported: ROADMAP A.10")
         self.cfg = cfg
         self.camera = camera
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         hw = (camera.height, camera.width)
         self.extractor = OrbExtractor(cfg.orb, hw)
         mult = cfg.orb.init_features_mult

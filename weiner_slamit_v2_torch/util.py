@@ -11,6 +11,8 @@
   the sum rounded to float32 is the fused result.
 * ``nanmedian``: numpy/JAX semantics (the mean of the two middle values for
   an even count; ``torch.nanmedian`` returns the lower one).
+* ``resolve_device``: the entry points' device argument; ``None`` means the
+  card, with no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -74,3 +76,9 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
     hi = s[(n // 2).clamp(max=x.shape[0] - 1)]
     med = torch.where(n % 2 == 1, lo, 0.5 * lo + 0.5 * hi)
     return torch.where(n > 0, med, torch.nan)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device("cuda")`` for ``None``, else ``torch.device(device)``:
+    the port runs on the card unless the caller asks for the CPU."""
+    return torch.device("cuda") if device is None else torch.device(device)
