@@ -23,10 +23,24 @@ Phases (each failure ends the run with a non-zero exit code):
   6. kernel B at the recorded fuse inputs: exact; device times of the
      kernel, the v1 design and the plain version, and the inputs' sparsity:
      rows with valid1, columns per row's window, columns the binned kernel
-     visits.
+     visits;
+  7. occlusion and relocalization: the same workload with the default
+     TrackingConfig (abortable_ba=True: the staged mapping pass) over 200
+     frames, frames 150-155 a constant 128 image (a covered lens). Asserts
+     the vocabulary trained at 4 keyframes and retrained at 16, LOST on
+     frame 150 with no reset, OK again by frame 165 and to the end, every
+     staged pass's BA stages issued or aborted once each, kernel A once per
+     frame and kernel B at least once per pass, and the ATE over the OK
+     frames; prints the relocalization (frame, candidates, inliers) and the
+     times of the training, retraining and relocalization frames;
+  8. early loss, with the default TrackingConfig: 60 frames, the two frames
+     after initialization blank, while the map holds <= 5 keyframes. Asserts
+     one reset (a fresh map and BoW index), reinitialization and OK to the
+     end.
+The kernel launch counts of phases 5, 7 and 8 are each read from zero.
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
-line of kernel results, the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}.
+line of kernel results (launches: phase 5's), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -43,6 +57,11 @@ import torch
 
 N_FRAMES = 120
 ATE_BOUND_M = 0.06
+# the bench.py workload (bench.py:50-80): 640x480 synthetic orbit, seed 0,
+# the 164-frame pace, fx = fy = 500, 1024 features, mapping latency 8 frames
+WORKLOAD = dict(H=480, W=640, f=500.0, n_features=1024, seed=0, motion_frames=164)
+RELOC = dict(n_frames=200, blank=range(150, 156), ok_by=165)   # phase 7
+RESET_FRAMES = 60                                             # phase 8
 # NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s, float32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -340,27 +359,81 @@ def phase_kernel_b_fuse(captured, dev) -> dict:
                 library_ms=None, v1_ms=v1_ms)
 
 
-def phase_slice(dev, card: str):
+def workload(n_frames: int, **tracking):
+    """(config, camera, sequence, uint8 frames) of the bench workload with
+    frames_per_sync=1 and the given TrackingConfig fields."""
     from weiner_slamit_v2_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
     from weiner_slamit_v2_torch.geometry.camera import Camera
     from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
-    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+
+    w = WORKLOAD
+    H, W, f = w["H"], w["W"], w["f"]
+    cx, cy = W / 2, H / 2
+    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
+    cfg = SlamConfig(
+        orb=OrbConfig(n_features=w["n_features"]),
+        camera=CameraConfig(fx=f, fy=f, cx=cx, cy=cy, k1=0, k2=0, p1=0, p2=0, k3=0,
+                            width=W, height=H),
+        tracking=TrackingConfig(mapping_latency_frames=8, frames_per_sync=1, **tracking),
+    )
+    seq = make_synthetic_sequence(n_frames=n_frames, h=H, w=W, seed=w["seed"], motion="orbit",
+                                  K=K, motion_frames=w["motion_frames"])
+    images = [np.clip(fr.image, 0, 255).astype(np.uint8) for fr in seq.frames]
+    return cfg, Camera.create(f, f, cx, cy, width=W, height=H), seq, images
+
+
+def reset_launches() -> None:
     from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+
+    fast_kernel.launches = 0
+    match_kernel.launches = 0
+
+
+def read_launches() -> dict:
+    from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+
+    return {"fast_score_nms": fast_kernel.launches, "windowed_best2": match_kernel.launches}
+
+
+def ok_frames_ate(sys_, states, gt, first: int = 0) -> float:
+    """Scale-aligned ATE over the OK frames from frame ``first`` on; the
+    trajectory's entry j is frame init + j (every frame after the first
+    initialization logs one entry)."""
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+
+    _, Twc = sys_.tracker.trajectory_Twc()
+    init = states.index("OK")
+    sel = [j for j in range(len(Twc)) if init + j >= first and states[init + j] == "OK"]
+    check(np.isfinite(Twc).all() and len(sel) > 10, f"trajectory {Twc.shape}, {len(sel)} OK frames")
+    return ate_rmse(Twc[sel], gt[init:][sel])
+
+
+def drive(sys_, images, seq, blank=(), on_frame=None):
+    """Feed the frames (``blank`` ones replaced by a constant 128 image),
+    synchronizing the card after each; returns (states, ms per frame)."""
+    states, frame_ms = [], []
+    for i, (img, fr) in enumerate(zip(images, seq.frames)):
+        if i in blank:
+            img = np.full_like(img, 128)
+        t0 = time.perf_counter()
+        out = sys_.track_monocular(img, fr.timestamp)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(out.state)
+        if on_frame is not None:
+            on_frame(i, out)
+    sys_.finish()
+    torch.cuda.synchronize()
+    return states, frame_ms
+
+
+def phase_slice(dev, card: str):
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
     from weiner_slamit_v2_torch.tracking import local_mapping
     from weiner_slamit_v2_torch.tracking.system import System
 
-    H, W, f = 480, 640, 500.0
-    K = np.array([[f, 0, 320.0], [0, f, 240.0], [0, 0, 1]], np.float32)
-    cfg = SlamConfig(
-        orb=OrbConfig(n_features=1024),
-        camera=CameraConfig(fx=f, fy=f, cx=320.0, cy=240.0, k1=0, k2=0, p1=0, p2=0, k3=0,
-                            width=W, height=H),
-        tracking=TrackingConfig(mapping_latency_frames=8, frames_per_sync=1, abortable_ba=False),
-    )
-    seq = make_synthetic_sequence(n_frames=N_FRAMES, h=H, w=W, seed=0, motion="orbit", K=K,
-                                  motion_frames=164)
-    images = [np.clip(fr.image, 0, 255).astype(np.uint8) for fr in seq.frames]
-    sys_ = System(cfg, Camera.create(f, f, 320.0, 240.0, width=W, height=H))   # the card by default
+    cfg, cam, seq, images = workload(N_FRAMES, abortable_ba=False)
+    sys_ = System(cfg, cam)   # the card by default
     check(sys_.device.type == dev.type and sys_.tracker.m.kf_pose.is_cuda, str(sys_.device))
 
     # record the fuse's kernel-B call with the most targets (the latest on a tie)
@@ -373,21 +446,12 @@ def phase_slice(dev, card: str):
         return out
 
     local_mapping.windowed_best2 = recorder
-    fast_kernel.launches = 0
-    match_kernel.launches = 0
-    states, frame_ms = [], []
+    reset_launches()
     try:
-        for img, fr in zip(images, seq.frames):
-            t0 = time.perf_counter()
-            out = sys_.track_monocular(img, fr.timestamp)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-            states.append(out.state)
-        sys_.finish()
-        torch.cuda.synchronize()
+        states, frame_ms = drive(sys_, images, seq)
     finally:
         local_mapping.windowed_best2 = real_best2
-    launches = {"fast_score_nms": fast_kernel.launches, "windowed_best2": match_kernel.launches}
+    launches = read_launches()
 
     init = next((i for i, s in enumerate(states) if s == "OK"), None)
     check(init is not None, f"never initialized: {states}")
@@ -412,6 +476,156 @@ def phase_slice(dev, card: str):
     check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
     check(bool(captured), "the fuse never called kernel B")
     return launches, captured
+
+
+def phase_reloc(dev, card: str) -> dict:
+    """Phase 7: the default (staged) pipeline through a covered lens."""
+    from weiner_slamit_v2_torch.optim import pnp
+    from weiner_slamit_v2_torch.tracking import tracker as tracker_mod
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    n, blank, ok_by = RELOC["n_frames"], RELOC["blank"], RELOC["ok_by"]
+    cfg, cam, seq, images = workload(n)
+    check(cfg.tracking.abortable_ba and cfg.tracking.ba_chunk_iters == 5, str(cfg.tracking))
+    sys_ = System(cfg, cam, device=dev)
+    t = sys_.tracker
+    relocs, kf_frames = [], []
+    # synchronized host times of the vocabulary (re)trainings and of each
+    # relocalization attempt, inside their frames' times, and of the parts of
+    # each attempt: candidate search, PnP, pose LMs, projection-retry matching
+    calls = {"vocabulary": [], "relocalize": [], "reloc_parts": []}
+    parts = []    # the attempt in progress: [dict of part -> ms]
+
+    def timed(fn, record):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            record((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def part(name, fn):
+        """fn timed as a part of a relocalization attempt; untimed elsewhere
+        (the pose LM also runs twice in every tracked frame)."""
+        def add(ms):
+            parts[-1][name] = round(parts[-1].get(name, 0.0) + ms, 3)
+
+        timed_fn = timed(fn, add)
+        return lambda *args: timed_fn(*args) if parts else fn(*args)
+
+    def relocalize(*args):
+        parts.append({})
+        try:
+            return timed(reloc, lambda ms: calls["relocalize"].append(round(ms, 3)))(*args)
+        finally:
+            calls["reloc_parts"].append(parts.pop())
+
+    for name in ("maybe_train", "retrain"):
+        setattr(t.bow, name, timed(getattr(t.bow, name),
+                                   lambda ms: calls["vocabulary"].append(round(ms, 3))))
+    reloc = t._relocalize
+    t._relocalize = relocalize
+    t._reloc_candidates = part("candidates", t._reloc_candidates)
+    patched = [(pnp, "ransac_pnp", "pnp"), (tracker_mod, "_pose_opt_on_obs", "pose_lm"),
+               (tracker_mod, "_reloc_widen", "retry_match")]
+    originals = [getattr(mod, attr) for mod, attr, _ in patched]
+    for mod, attr, name in patched:
+        setattr(mod, attr, part(name, getattr(mod, attr)))
+
+    def on_frame(i, out):
+        if out.state == "OK" and i > 0 and t.last_reloc_frame == i:
+            relocs.append(dict(t.last_reloc_attempt))
+        if out.created_kf:
+            kf_frames.append(i)
+
+    reset_launches()
+    try:
+        states, frame_ms = drive(sys_, images, seq, blank, on_frame)
+    finally:
+        for (mod, attr, _), fn in zip(patched, originals):
+            setattr(mod, attr, fn)
+    launches = read_launches()
+
+    first = blank[0]
+    back = next((i for i in range(first, n) if states[i] == "OK"), None)
+    stages = 1 + sys_._n_ba_chunks
+    trainings = t.vocab_trainings
+    ate = ok_frames_ate(sys_, states, seq.gt_Twc)
+    init = states.index("OK")
+    steady = [ms for i, ms in enumerate(frame_ms) if i > init]
+    kf_ms = [frame_ms[i] for i in kf_frames if i > init]
+    other_ms = [ms for i, ms in enumerate(frame_ms) if i > init and i not in kf_frames
+                and i not in blank and i != back]
+    log(f"reloc: init at frame {init}, vocabulary (keyframes, frame) {trainings}, LOST frames "
+        f"{[i for i, s in enumerate(states) if s == 'LOST']}, OK again at frame {back}, "
+        f"relocalizations {relocs}, keyframes created {t.n_kf_host} (valid {sys_.n_keyframes()}), "
+        f"resets {t.resets}, staged passes {sys_.staged_passes} (adopted {sys_.mapping_passes}), "
+        f"BA stages issued {sys_.ba_chunks_issued} aborted {sys_.ba_chunks_aborted}, "
+        f"ATE over OK frames {ate:.5f} m, launches {launches}")
+    log(f"reloc: median {np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} "
+        f"ms/frame, max {max(steady):.3f} ms; vocabulary frames "
+        f"{[(k, f, round(frame_ms[f], 3)) for k, f in trainings]} (keyframes, frame, ms); "
+        f"blank (LOST) frames ms {[round(frame_ms[i], 3) for i in blank]}; relocalization "
+        f"frame ms {round(frame_ms[back], 3) if back is not None else None}; median of the "
+        f"{len(kf_ms)} keyframe frames {np.median(kf_ms):.3f} ms, of the {len(other_ms)} other "
+        f"OK frames {np.median(other_ms):.3f} ms; inside them: vocabulary (re)training ms "
+        f"{calls['vocabulary']}, relocalization calls ms {calls['relocalize']}, their parts "
+        f"ms {calls['reloc_parts']} (host clock, synchronized per frame) on {card}")
+    check([k for k, _ in trainings[:2]] == [4, 16] and trainings[1][1] < first,
+          f"vocabulary trainings {trainings}: want 4 and 16 keyframes before frame {first}")
+    check(states[first] == "LOST" and t.resets == 0, f"frame {first}: {states[first]}, resets {t.resets}")
+    check(back is not None and back <= ok_by and relocs and relocs[0]["frame"] == back,
+          f"OK again at frame {back} (want <= {ok_by}), relocalizations {relocs}")
+    check(all(s == "OK" for s in states[back:]), f"lost after relocalization: {states[back:]}")
+    check(all(s == "OK" for s in states[init:first]), f"lost before the blank frames: {states}")
+    check(sys_.ba_chunks_issued > 0 and sys_._stage is None
+          and sys_.ba_chunks_issued + sys_.ba_chunks_aborted == stages * sys_.staged_passes,
+          f"BA stages {sys_.ba_chunks_issued} + {sys_.ba_chunks_aborted} != {stages} x "
+          f"{sys_.staged_passes} passes")
+    check(launches["fast_score_nms"] == n, str(launches))
+    check(launches["windowed_best2"] >= sys_.staged_passes >= sys_.mapping_passes > 0, str(launches))
+    check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
+    return launches
+
+
+def phase_reset(dev) -> dict:
+    """Phase 8: a loss within the first 5 keyframes resets the session; the
+    TrackingConfig is the default one, as a user constructs it."""
+    from weiner_slamit_v2_torch.config import TrackingConfig
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    cfg, cam, seq, images = workload(RESET_FRAMES)
+    cfg = cfg.replace(tracking=TrackingConfig())
+    sys_ = System(cfg, cam, device=dev)
+    t = sys_.tracker
+    blank, at_loss = [], {}
+
+    def on_frame(i, out):
+        if out.state == "OK" and not blank:
+            blank.extend((i + 1, i + 2))          # the two frames after initialization
+        if out.state == "LOST" and not at_loss:
+            at_loss.update(frame=i, n_kf=t.n_kf_host, bow_ready=t.bow.ready, resets=t.resets,
+                           n_kf_valid=int(t.m.kf_valid.sum()))
+
+    reset_launches()
+    states, _ = drive(sys_, images, seq, blank, on_frame)
+    launches = read_launches()
+    reinit = next((i for i in range(blank[-1] + 1, len(states)) if states[i] == "OK"), None)
+    ate = ok_frames_ate(sys_, states, seq.gt_Twc, reinit) if reinit is not None else float("nan")
+    log(f"reset: blank frames {blank}, at the loss {at_loss}, resets {t.resets}, reinitialized at "
+        f"frame {reinit}, keyframes since {t.n_kf_host}, ATE over the new session's OK frames "
+        f"{ate:.5f} m, launches {launches}")
+    check(at_loss.get("frame") == blank[0] and at_loss["resets"] == 1 and at_loss["n_kf"] == 0
+          and at_loss["n_kf_valid"] == 0 and not at_loss["bow_ready"], f"at the loss: {at_loss}")
+    check(t.resets == 1, f"{t.resets} resets")
+    check(reinit is not None and all(s == "OK" for s in states[reinit:]),
+          f"no reinitialization to the end: {states}")
+    check(launches["fast_score_nms"] == RESET_FRAMES and launches["windowed_best2"] >= 1,
+          str(launches))
+    check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
+    return launches
 
 
 def main() -> int:
@@ -443,6 +657,8 @@ def main() -> int:
     phase_kernel_b(dev)
     launches, captured = phase_slice(dev, card)
     kern_b = phase_kernel_b_fuse(captured, dev)
+    by_path = {"slice": launches, "reloc": phase_reloc(dev, card), "reset": phase_reset(dev)}
+    log(f"kernel launches by path (each read from zero): {by_path}")
     kernels = [kern_a, kern_b]
     for k in kernels:
         k["launches"] = launches[k["name"]]

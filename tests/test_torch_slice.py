@@ -108,10 +108,16 @@ def test_trajectory_export(runs, tmp_path):
 
 
 def test_unported_configurations_raise():
+    """frames_per_sync > 1 still raises (ROADMAP A.7); the default
+    TrackingConfig (abortable_ba=True, the staged pass) constructs."""
     cfg = small_config(tconfig)
     cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        System(cfg.replace(tracking=tconfig.TrackingConfig(abortable_ba=True)), cam, device="cpu")
+    staged = System(cfg.replace(tracking=tconfig.TrackingConfig()), cam, device="cpu")
+    assert staged.cfg.tracking.abortable_ba and staged._n_ba_chunks == 2
+    with pytest.raises(NotImplementedError, match="A.12"):
+        staged.load_map("map.npz")
+    with pytest.raises(NotImplementedError, match="A.10"):
+        staged.track_stereo(None, None, 0.0)
     with pytest.raises(NotImplementedError, match="A.7"):
         System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam,
                device="cpu")

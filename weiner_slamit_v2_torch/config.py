@@ -102,8 +102,7 @@ class TrackingConfig:
     # chunks of ba_chunk_iters, write-back) so a forced keyframe insertion
     # (c1a/c1c) skips the not-yet-issued chunks and adopts best-so-far
     # instead of blocking on the full LM schedule. False = one fused
-    # mapping pass (uninterruptible). The port runs False only (System
-    # raises for True; ROADMAP A.8).
+    # mapping pass (uninterruptible).
     abortable_ba: bool = True
     ba_chunk_iters: int = 5
 

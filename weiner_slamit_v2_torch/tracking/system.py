@@ -3,15 +3,25 @@ weiner_slamit_v2_tpu/tracking/system.py, the monocular slice;
 ORB_SLAM2::System, src/System.cc).
 
 ``track_monocular`` runs tracking and, after each new keyframe, one local
-mapping pass (``mapping_step``). As in the JAX package, tracking keeps
-using the pre-pass map until the pass is adopted ``mapping_latency_frames``
-frames later (the reference's asynchronous LocalMapping thread); the pass
-itself runs when the keyframe is created, on the same device.
+mapping pass. As in the JAX package, tracking keeps using the pre-pass map
+until the pass is adopted ``mapping_latency_frames`` frames later (the
+reference's asynchronous LocalMapping thread).
 
-Not ported in this slice: the fused N-frame scan (``frames_per_sync > 1``,
-ROADMAP A.7), the staged abortable BA (``abortable_ba=True``, ROADMAP A.8),
-loop closing (ROADMAP A.11), map lifecycle (ROADMAP A.12) and distributed
-BA (ROADMAP A.13).
+Two forms of the pass, as in the JAX package:
+* ``abortable_ba=False``: ``mapping_step`` in one call at the keyframe;
+* ``abortable_ba=True`` (the default): staged. ``mapping_pre`` runs at the
+  keyframe; each later poll launches the next stage once the previous one is
+  done on the device (``ba_phase1``, ``ba_phase2_chunk`` x ceil(iters2 /
+  ba_chunk_iters), then ``ba_finalize`` + ``mapping_finish``). A forced
+  keyframe insertion aborts the chunks not yet issued and adopts the best
+  state so far (mbAbortBA, src/LocalMapping.cc:127). "Done on the device"
+  is a ``torch.cuda.Event`` recorded after the stage's launch; on the CPU a
+  stage is done when its call returns.
+
+Not ported in this slice (each raises ``NotImplementedError`` naming its
+ROADMAP item): the fused N-frame scan (``frames_per_sync > 1``, A.7),
+stereo and RGB-D (A.10), loop closing (A.11), map checkpoints and compaction
+(A.12). Distributed BA (A.13) has no entry point yet.
 """
 
 from __future__ import annotations
@@ -25,9 +35,24 @@ from ..config import SlamConfig
 from ..geometry import se3
 from ..geometry.camera import Camera
 from ..io import trajectory as traj_io
+from ..optim.local_ba import BA_LAMBDA_INIT, ba_finalize, ba_phase1, ba_phase2_chunk
 from ..util import resolve_device
-from .local_mapping import mapping_step
+from .local_mapping import mapping_finish, mapping_pre, mapping_step
 from .tracker import Tracker, TrackerOutput
+
+
+def _launched_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event recorded after the work just enqueued on ``device`` (None on
+    the CPU, where that work has already run)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def _done(ev: Optional[torch.cuda.Event]) -> bool:
+    return ev is None or ev.query()
 
 
 class System:
@@ -35,10 +60,6 @@ class System:
                  device=None, enable_mapping: bool = True, enable_loop_closing: bool = False,
                  mapping_neighbors: int | None = None):
         self.cfg = cfg or SlamConfig()
-        if self.cfg.tracking.abortable_ba:
-            raise NotImplementedError(
-                "abortable_ba=True (staged mapping_pre / BA chunks / mapping_finish) is "
-                "not ported: ROADMAP A.8; use TrackingConfig(abortable_ba=False)")
         if enable_loop_closing:
             raise NotImplementedError("loop closing is not ported: ROADMAP A.11")
         cc = self.cfg.camera
@@ -52,37 +73,137 @@ class System:
         if enable_mapping:
             self.tracker.mapping_hook = self._on_new_keyframe
             self.tracker.mapper_idle_hook = self.mapper_idle
-        # the mapping pass waiting for adoption: (map, kf_id, counter snapshot)
+        self.tracker.reset_hook = self._discard_pending
+        self.localization_only = False
+        # the mapping pass waiting for adoption: (map, its event, kf_id,
+        # counter snapshot); a staged pass in flight is in _stage
         self._pending_map = None
+        self._pending_event = None
         self._pending_kf = -1
         self._pending_counters = None
         self._mapping_enqueued_frame = -(10**9)
-        self.mapping_passes = 0   # adopted passes
+        self._stage: Optional[dict] = None
+        self.mapping_passes = 0      # adopted passes
+        self.staged_passes = 0       # staged passes that reached mapping_finish
+        self.ba_chunks_issued = 0    # ba_phase1 + ba_phase2_chunk launches
+        self.ba_chunks_aborted = 0   # the ones an abort skipped
+
+    @property
+    def _n_ba_chunks(self) -> int:
+        per = max(self.cfg.tracking.ba_chunk_iters, 1)
+        return -(-self.cfg.optim.local_ba_iters2 // per)
+
+    def _discard_pending(self) -> None:
+        """Drop the pass in flight (the tracker's reset_hook): a pass computed
+        on the pre-reset map must not be adopted into the fresh session."""
+        self._pending_map = self._pending_event = self._pending_counters = None
+        self._pending_kf = -1
+        self._stage = None
 
     def _on_new_keyframe(self, kf_id: int) -> None:
+        if self.localization_only:
+            return
         t = self.tracker
-        self._pending_map = mapping_step(
-            t.m, kf_id, t.K, t.scale_factors, t.sigma2, t.inv_sigma2, self.cfg,
-            n_neighbors=self.mapping_neighbors,
-        )
+        args = (t.m, kf_id, t.K, t.scale_factors, t.sigma2, t.inv_sigma2, self.cfg)
+        if self.cfg.tracking.abortable_ba:
+            m, prob, cam_ids, point_ids = mapping_pre(*args, n_neighbors=self.mapping_neighbors)
+            self._stage = dict(name="pre", kf=kf_id, m=m, prob=prob, cam_ids=cam_ids,
+                               point_ids=point_ids, ba_state=None,
+                               chunks_left=self._n_ba_chunks, event=_launched_event(self.device))
+            self._pending_map = self._pending_event = None
+        else:
+            self._pending_map = mapping_step(*args, n_neighbors=self.mapping_neighbors)
+            self._pending_event = _launched_event(self.device)
+            self._stage = None
         self._pending_kf = kf_id
         # tracking keeps counting visible/found while the pass waits; adoption
         # re-applies those increments (they feed the found-ratio culling)
         self._pending_counters = (t.m.mp_visible, t.m.mp_found)
         self._mapping_enqueued_frame = t.frame_id
 
-    def mapper_idle(self, force: bool = False) -> bool:
-        """Adopt a finished mapping pass once its latency floor has passed
-        (or now, with force); True when no pass is waiting."""
+    def _finish_stage(self, res) -> None:
+        s = self._stage
+        self._pending_map = mapping_finish(s["m"], s["kf"], res, s["prob"], s["cam_ids"],
+                                           s["point_ids"], self.cfg)
+        self._pending_event = _launched_event(self.device)
+        self._stage = None
+        self.staged_passes += 1
+
+    def _advance_stage(self, abort: bool = False, eager: bool = False) -> bool:
+        """Launch the staged pass's next program once the current one is done
+        (eager: without waiting; the stream runs them in order). abort skips
+        every BA chunk not yet issued and finalizes from the best state so
+        far. Returns True when the final map is in _pending_map."""
+        s = self._stage
+        if s is None:
+            return self._pending_map is not None
+        if not (abort or eager or _done(s["event"])):
+            return False
+        o, t = self.cfg.optim, self.cfg.tracking
+        if s["name"] == "pre":
+            if abort or s["prob"] is None:
+                # aborted before the BA started: no write-back
+                self.ba_chunks_aborted += s["chunks_left"] + 1
+                self._finish_stage(None)
+                return True
+            s["ba_state"] = ba_phase1(s["prob"], n_iters=o.local_ba_iters1)
+            s["name"] = "ba"
+            s["event"] = _launched_event(self.device)
+            self.ba_chunks_issued += 1
+            return False
+        cam_pose, points, lam, inlier = s["ba_state"]
+        if not abort and s["chunks_left"] > 0:
+            first = s["chunks_left"] == self._n_ba_chunks
+            lam = BA_LAMBDA_INIT if first else lam   # the refinement restarts its damping
+            s["ba_state"] = (*ba_phase2_chunk(s["prob"], cam_pose, points, lam, inlier,
+                                              n_iters=t.ba_chunk_iters), inlier)
+            s["chunks_left"] -= 1
+            s["event"] = _launched_event(self.device)
+            self.ba_chunks_issued += 1
+            return False
+        # every chunk ran, or an abort: finalize the best state so far
+        self.ba_chunks_aborted += s["chunks_left"] if abort else 0
+        self._finish_stage(ba_finalize(s["prob"], cam_pose, points))
+        return True
+
+    def mapper_idle(self, force: bool = False, abort: bool = False) -> bool:
+        """Adopt a finished mapping pass; True when no pass is in flight.
+        force blocks until the pass is adopted; abort also skips every BA
+        chunk not yet issued (InterruptBA for a forced keyframe insertion,
+        src/Tracking.cc:1287-1303); force without abort (finish) runs the
+        whole schedule."""
+        chained = False
+        if self._stage is not None:
+            if abort:
+                self._advance_stage(abort=True)
+            elif force or (self.tracker.frame_id - self._mapping_enqueued_frame
+                           >= self.cfg.tracking.mapping_latency_frames):
+                # the latency budget is spent (or a blocking drain): issue every
+                # remaining stage now, which the fused pass would have done
+                while self._stage is not None:
+                    self._advance_stage(eager=True)
+                chained = True
+            else:
+                # lazily: the next stage only once its predecessor is done, so a
+                # forced insertion can still abort the later chunks
+                while self._stage is not None:
+                    before = (self._stage["name"], self._stage["chunks_left"])
+                    self._advance_stage()
+                    if self._stage is not None and (self._stage["name"],
+                                                    self._stage["chunks_left"]) == before:
+                        break
         if self._pending_map is None:
-            return True
+            return self._stage is None
         busy = self.tracker.frame_id - self._mapping_enqueued_frame
         if not force and busy < self.cfg.tracking.mapping_latency_frames:
+            return False
+        if not (force or chained or _done(self._pending_event)):
             return False
         t = self.tracker
         m, kf_id = self._pending_map, self._pending_kf
         snap_v, snap_f = self._pending_counters
-        self._pending_map, self._pending_kf, self._pending_counters = None, -1, None
+        self._pending_map = self._pending_event = self._pending_counters = None
+        self._pending_kf = -1
         m = m.replace(mp_visible=m.mp_visible + (t.m.mp_visible - snap_v),
                       mp_found=m.mp_found + (t.m.mp_found - snap_f))
         prev_kf_valid = t.m.kf_valid
@@ -133,6 +254,38 @@ class System:
         self.mapper_idle()
         img = image if getattr(image, "dtype", None) == np.uint8 else np.asarray(image, np.float32)
         return self.tracker.process_frame(img, timestamp)
+
+    def track_rgbd(self, image, depth, timestamp: float) -> TrackerOutput:
+        raise NotImplementedError("RGB-D tracking is not ported: ROADMAP A.10")
+
+    def track_stereo(self, left, right, timestamp: float) -> TrackerOutput:
+        raise NotImplementedError("stereo tracking is not ported: ROADMAP A.10")
+
+    def save_map(self, path: str) -> None:
+        raise NotImplementedError("map checkpoints are not ported: ROADMAP A.12")
+
+    def load_map(self, path: str) -> None:
+        raise NotImplementedError("map checkpoints are not ported: ROADMAP A.12")
+
+    def compact(self) -> None:
+        raise NotImplementedError("map compaction is not ported: ROADMAP A.12")
+
+    def activate_localization_mode(self) -> None:
+        """Tracking only, no new keyframes (System::ActivateLocalizationMode,
+        src/System.cc:364)."""
+        self.localization_only = True
+        self.tracker.allow_keyframes = False
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
+        self.tracker.allow_keyframes = True
+
+    def reset(self) -> None:
+        """System::Reset (src/System.cc:375): a fresh map and session."""
+        self._discard_pending()
+        self.tracker.reset()
+        self.tracker.trajectory.clear()
+        self.tracker.frame_id = -1
 
     @property
     def map(self):
