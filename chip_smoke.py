@@ -36,8 +36,27 @@ Phases (each failure ends the run with a non-zero exit code):
   8. early loss, with the default TrackingConfig: 60 frames, the two frames
      after initialization blank, while the map holds <= 5 keyframes. Asserts
      one reset (a fresh map and BoW index), reinitialization and OK to the
-     end.
-The kernel launch counts of phases 5, 7 and 8 are each read from zero.
+     end;
+  9. RGB-D (the JAX campaign's config-3 proxy): System.track_rgbd over 150
+     frames of the occluding multi-plane world with photometric noise and
+     exact depth maps (sensor "rgbd", bf 60, depth threshold 40). Asserts OK
+     from frame 0 (depth initialization) to the end, more than one keyframe,
+     metric ATE, kernel A once per frame and B once per mapping pass; then
+     save_map, a fresh System on the card load_map's it (arrays equal to the
+     file's) and, in localization mode, relocalizes on one of frames 0-7;
+ 10. stereo (the config-4 proxy without loop closing): System.track_stereo
+     over 150 frames of a loop in the same world, baseline 0.12 m (bf 60),
+     uint8 pairs. Asserts OK to the end, >= 2 keyframes, > 100 points,
+     metric ATE, kernel A twice per frame, B once per pass; on the first
+     frame >= 80 stereo matches with a median depth error < 0.15 m against
+     the rendered depth; prints match_stereo's device time there;
+ 11. compaction: the phase-5 workload over 200 frames with a 12-keyframe
+     pool (local BA window 6): asserts at least one compaction (System.
+     compact called by the per-frame trigger), > 80 % of frames OK, finite
+     poses and the scale-aligned ATE; prints the compact() times.
+The kernel launch counts of phases 5, 7-11 are each read from zero. With
+phase numbers as arguments (``python3 chip_smoke.py 9 10``) only those of
+phases 7-11 run, after phases 1-6.
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
 line of kernel results (launches: phase 5's), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -62,6 +81,15 @@ ATE_BOUND_M = 0.06
 WORKLOAD = dict(H=480, W=640, f=500.0, n_features=1024, seed=0, motion_frames=164)
 RELOC = dict(n_frames=200, blank=range(150, 156), ok_by=165)   # phase 7
 RESET_FRAMES = 60                                             # phase 8
+# phases 9-11: the JAX campaign's config 3 and 4 proxies
+# (tools/run_baseline.py:237-309) at the bench geometry, and a small pool
+DEPTH_FRAMES = 150
+BF = 60.0                     # baseline 0.12 m x fx 500
+DEPTH_THRESHOLD = 40.0
+RGBD_SEQ = dict(seed=6, motion="orbit", world="multi", photometric_noise=2.0, with_depth=True)
+STEREO_SEQ = dict(seed=7, motion="loop", world="multi", photometric_noise=2.0, with_depth=True,
+                  stereo_baseline=BF / 500.0)
+COMPACT = dict(n_frames=200, max_keyframes=12, local_ba_window=6)
 # NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s, float32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -359,9 +387,15 @@ def phase_kernel_b_fuse(captured, dev) -> dict:
                 library_ms=None, v1_ms=v1_ms)
 
 
-def workload(n_frames: int, **tracking):
+def uint8(img: np.ndarray) -> np.ndarray:
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def workload(n_frames: int, cam: dict | None = None, seq: dict | None = None, **tracking):
     """(config, camera, sequence, uint8 frames) of the bench workload with
-    frames_per_sync=1 and the given TrackingConfig fields."""
+    frames_per_sync=1, the given TrackingConfig fields, CameraConfig fields
+    ``cam`` and make_synthetic_sequence arguments ``seq`` (default: the
+    bench orbit)."""
     from weiner_slamit_v2_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
     from weiner_slamit_v2_torch.geometry.camera import Camera
     from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
@@ -373,12 +407,12 @@ def workload(n_frames: int, **tracking):
     cfg = SlamConfig(
         orb=OrbConfig(n_features=w["n_features"]),
         camera=CameraConfig(fx=f, fy=f, cx=cx, cy=cy, k1=0, k2=0, p1=0, p2=0, k3=0,
-                            width=W, height=H),
+                            width=W, height=H, **(cam or {})),
         tracking=TrackingConfig(mapping_latency_frames=8, frames_per_sync=1, **tracking),
     )
-    seq = make_synthetic_sequence(n_frames=n_frames, h=H, w=W, seed=w["seed"], motion="orbit",
-                                  K=K, motion_frames=w["motion_frames"])
-    images = [np.clip(fr.image, 0, 255).astype(np.uint8) for fr in seq.frames]
+    seq = make_synthetic_sequence(n_frames=n_frames, h=H, w=W, K=K, motion_frames=w["motion_frames"],
+                                  **(seq or dict(seed=w["seed"], motion="orbit")))
+    images = [uint8(fr.image) for fr in seq.frames]
     return cfg, Camera.create(f, f, cx, cy, width=W, height=H), seq, images
 
 
@@ -408,15 +442,17 @@ def ok_frames_ate(sys_, states, gt, first: int = 0) -> float:
     return ate_rmse(Twc[sel], gt[init:][sel])
 
 
-def drive(sys_, images, seq, blank=(), on_frame=None):
+def drive(sys_, images, seq, blank=(), on_frame=None, feed=None):
     """Feed the frames (``blank`` ones replaced by a constant 128 image),
-    synchronizing the card after each; returns (states, ms per frame)."""
+    synchronizing the card after each; returns (states, ms per frame).
+    feed(i, image): the entry point (default track_monocular)."""
+    feed = feed or (lambda i, img: sys_.track_monocular(img, seq.frames[i].timestamp))
     states, frame_ms = [], []
-    for i, (img, fr) in enumerate(zip(images, seq.frames)):
+    for i, img in enumerate(images):
         if i in blank:
             img = np.full_like(img, 128)
         t0 = time.perf_counter()
-        out = sys_.track_monocular(img, fr.timestamp)
+        out = feed(i, img)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         states.append(out.state)
@@ -497,10 +533,10 @@ def phase_reloc(dev, card: str) -> dict:
     parts = []    # the attempt in progress: [dict of part -> ms]
 
     def timed(fn, record):
-        def run(*args):
+        def run(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             record((time.perf_counter() - t0) * 1e3)
             return out
@@ -513,7 +549,7 @@ def phase_reloc(dev, card: str) -> dict:
             parts[-1][name] = round(parts[-1].get(name, 0.0) + ms, 3)
 
         timed_fn = timed(fn, add)
-        return lambda *args: timed_fn(*args) if parts else fn(*args)
+        return lambda *args, **kwargs: timed_fn(*args, **kwargs) if parts else fn(*args, **kwargs)
 
     def relocalize(*args):
         parts.append({})
@@ -628,6 +664,179 @@ def phase_reset(dev) -> dict:
     return launches
 
 
+def depth_asserts(label: str, sys_, states, frame_ms, launches, seq, per_frame: int, card: str):
+    """The checks shared by the RGB-D and stereo runs; returns the metric ATE."""
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+
+    n = len(states)
+    _, Twc = sys_.tracker.trajectory_Twc()
+    check(np.isfinite(Twc).all() and Twc.shape == (n, 4, 4), f"{label} trajectory {Twc.shape}")
+    ate = ate_rmse(Twc, seq.gt_Twc, align_scale=False)
+    steady = frame_ms[1:]
+    log(f"{label}: states {sum(s == 'OK' for s in states)} OK of {n}, keyframes created "
+        f"{sys_.tracker.n_kf_host} (valid {sys_.n_keyframes()}), map points {sys_.n_map_points()}, "
+        f"staged passes {sys_.staged_passes} (adopted {sys_.mapping_passes}), BA stages issued "
+        f"{sys_.ba_chunks_issued} aborted {sys_.ba_chunks_aborted}, metric ATE {ate:.5f} m, "
+        f"launches {launches}")
+    log(f"{label}: median {np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} "
+        f"ms/frame, max {max(steady):.3f} ms, first frame {frame_ms[0]:.3f} ms (host clock, "
+        f"synchronized per frame) on {card}")
+    check(all(s == "OK" for s in states), f"{label}: not OK from frame 0 to the end: {states}")
+    check(sys_.n_keyframes() >= 2 and sys_.n_map_points() > 100,
+          f"{label}: {sys_.n_keyframes()} keyframes, {sys_.n_map_points()} points")
+    check(launches["fast_score_nms"] == per_frame * n, f"{label}: {launches}, want A {per_frame} x {n}")
+    check(launches["windowed_best2"] >= sys_.staged_passes >= sys_.mapping_passes > 0,
+          f"{label}: {launches}, passes {sys_.staged_passes}")
+    check(ate < ATE_BOUND_M, f"{label}: metric ATE {ate} m >= {ATE_BOUND_M} m")
+    return ate
+
+
+def phase_rgbd(dev, card: str) -> dict:
+    """Phase 9: RGB-D, then the map through a checkpoint into a fresh
+    localization-only session."""
+    import tempfile
+
+    from weiner_slamit_v2_torch.slam_map.convert import map_to_numpy
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    cfg, cam, seq, images = workload(DEPTH_FRAMES, cam=dict(baseline_times_fx=BF,
+                                     depth_threshold=DEPTH_THRESHOLD), seq=RGBD_SEQ)
+    cfg = cfg.replace(sensor="rgbd")
+    sys_ = System(cfg, cam)
+    feed = lambda i, img: sys_.track_rgbd(img, seq.frames[i].depth, seq.frames[i].timestamp)  # noqa: E731
+    first = []
+
+    def on_frame(i, out):
+        if i == 0:
+            first.append(out.created_kf)
+
+    reset_launches()
+    states, frame_ms = drive(sys_, images, seq, feed=feed, on_frame=on_frame)
+    launches = read_launches()
+    check(first == [True], f"rgbd: frame 0 made no keyframe: {first}")
+    depth_asserts("rgbd", sys_, states, frame_ms, launches, seq, 1, card)
+
+    with tempfile.TemporaryDirectory() as td:
+        path = f"{td}/map.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_.save_map(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        s2 = System(cfg, cam)    # the card by default
+        t0 = time.perf_counter()
+        s2.load_map(path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        with np.load(path) as z:
+            got = map_to_numpy(s2.tracker.m)
+            diff = [k for k in z.files if not np.array_equal(z[k], got[k])]
+            size = sum(z[k].nbytes for k in z.files)
+        check(not diff and s2.tracker.m.kf_pose.is_cuda, f"loaded map differs in {diff}")
+        check(s2.tracker.state == "LOST" and s2.tracker.n_kf_host == sys_.tracker.n_kf_host,
+              f"after load_map: {s2.tracker.state}, {s2.tracker.n_kf_host} keyframes")
+        s2.activate_localization_mode()
+        reloc = None
+        for i in range(8):
+            out = s2.track_rgbd(images[i], seq.frames[i].depth, 100.0 + i / 30.0)
+            if out.state == "OK":
+                reloc = (i, out.n_inliers)
+                break
+    log(f"rgbd checkpoint: save_map {save_ms:.3f} ms, load_map {load_ms:.3f} ms ({size} bytes of "
+        f"arrays; the loaded arrays equal the file's), relocalized (frame, inliers) {reloc}, "
+        f"last attempt {s2.tracker.last_reloc_attempt} on {card}")
+    check(reloc is not None, "no relocalization against the loaded map in frames 0-7")
+    check(s2.tracker.n_kf_host == sys_.tracker.n_kf_host, "localization mode added a keyframe")
+    return launches
+
+
+def phase_stereo(dev, card: str) -> dict:
+    """Phase 10: stereo; the matcher's accuracy and device time on frame 0."""
+    from weiner_slamit_v2_torch.ops.stereo import match_stereo
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    cfg, cam, seq, images = workload(DEPTH_FRAMES, cam=dict(baseline_times_fx=BF,
+                                     depth_threshold=DEPTH_THRESHOLD), seq=STEREO_SEQ)
+    cfg = cfg.replace(sensor="stereo")
+    rights = [uint8(fr.image_right) for fr in seq.frames]
+    sys_ = System(cfg, cam)
+    t = sys_.tracker
+    matches, first = [], {}
+
+    def on_frame(i, out):
+        matches.append(int((t._cur_depth > 0).sum()))
+        if i == 0:
+            d = t._cur_depth.cpu().numpy()
+            xy = np.round(t.last_feats.xy.cpu().numpy()).astype(int)
+            ok = d > 0
+            gt = seq.frames[0].depth[xy[ok, 1], xy[ok, 0]]
+            first.update(n=int(ok.sum()), err=float(np.median(np.abs(d[ok] - gt))),
+                         feats=t.last_feats)
+
+    feed = lambda i, img: sys_.track_stereo(img, rights[i], i / 30.0)  # noqa: E731
+    reset_launches()
+    states, frame_ms = drive(sys_, images, seq, feed=feed, on_frame=on_frame)
+    launches = read_launches()
+    depth_asserts("stereo", sys_, states, frame_ms, launches, seq, 2, card)
+
+    left = torch.from_numpy(images[0]).to(dev)
+    right = torch.from_numpy(rights[0]).to(dev)
+    fl, fr = first["feats"], t.extractor(right)
+    args = (fl, fr, left.float(), right.float(), torch.tensor(t.bf, device=dev),
+            torch.tensor(t.min_z, device=dev), t.scale_factors, cfg.orb.n_levels)
+    st_ms = device_ms(lambda: match_stereo(*args))
+    n_l, n_r = int(fl.valid.sum()), int(fr.valid.sum())
+    log(f"stereo: frame 0 has {first['n']} stereo matches (of {n_l} left, {n_r} right features), "
+        f"median |stereo depth - rendered depth| {first['err']:.5f} m; matches per frame median "
+        f"{np.median(matches):.1f} (min {min(matches)}); match_stereo device time at frame 0's "
+        f"features ({fl.n} x {fr.n} pairs, {fl.n} x 11 SAD slides) {st_ms:.5f} ms on {card}")
+    check(first["n"] >= 80 and first["err"] < 0.15, f"stereo frame 0: {first['n']} matches, "
+          f"median depth error {first['err']} m")
+    return launches
+
+
+def phase_compact(dev, card: str) -> dict:
+    """Phase 11: a keyframe pool small enough to fill; the per-frame trigger
+    compacts it."""
+    from weiner_slamit_v2_torch.config import MapCapacityConfig
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    n = COMPACT["n_frames"]
+    cfg, cam, seq, images = workload(n)
+    cfg = cfg.replace(capacity=MapCapacityConfig(max_keyframes=COMPACT["max_keyframes"],
+                                                 local_ba_window=COMPACT["local_ba_window"]))
+    sys_ = System(cfg, cam)
+    t = sys_.tracker
+    calls, real = [], sys_.compact
+
+    def compact():
+        before = (t.frame_id, t.n_kf_host, int(t.m.kf_valid.sum()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real()
+        torch.cuda.synchronize()
+        calls.append((*before, t.n_kf_host, round((time.perf_counter() - t0) * 1e3, 3)))
+
+    sys_.compact = compact
+    reset_launches()
+    states, frame_ms = drive(sys_, images, seq)
+    launches = read_launches()
+    n_ok = sum(s == "OK" for s in states)
+    ate = ok_frames_ate(sys_, states, seq.gt_Twc)
+    _, Twc = t.trajectory_Twc()
+    init = states.index("OK")
+    steady = frame_ms[init + 1:]
+    log(f"compact: {COMPACT}, init at frame {init}, {n_ok} OK of {n}, compactions (frame, keyframe "
+        f"slots used, valid, slots after, ms) {calls}, keyframe slots used at the end "
+        f"{t.n_kf_host}, ATE over OK frames {ate:.5f} m, launches {launches}; median "
+        f"{np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} on {card}")
+    check(len(calls) >= 1 and sys_.compactions == len(calls), f"no compaction: {calls}")
+    check(n_ok > 0.8 * n, f"{n_ok} of {n} frames OK")
+    check(np.isfinite(Twc).all(), "non-finite exported pose")
+    check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
+    check(launches["fast_score_nms"] == n, str(launches))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -651,13 +860,21 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line or "smem" in line:
             log(f"  ptxas: {line.strip()}")
 
-    frame = np.clip(make_synthetic_sequence(n_frames=2, h=480, w=640, seed=0, motion="orbit")
-                    .frames[1].image, 0, 255).astype(np.uint8)
+    frame = uint8(make_synthetic_sequence(n_frames=2, h=480, w=640, seed=0, motion="orbit")
+                  .frames[1].image)
     kern_a = phase_kernel_a(frame, dev)
     phase_kernel_b(dev)
+    want = {int(a) for a in sys.argv[1:]} or set(range(7, 12))
     launches, captured = phase_slice(dev, card)
     kern_b = phase_kernel_b_fuse(captured, dev)
-    by_path = {"slice": launches, "reloc": phase_reloc(dev, card), "reset": phase_reset(dev)}
+    paths = [(7, "reloc", phase_reloc), (8, "reset", lambda d, c: phase_reset(d)),
+             (9, "rgbd", phase_rgbd), (10, "stereo", phase_stereo), (11, "compact", phase_compact)]
+    by_path = {"slice": launches}
+    for num, name, phase in paths:
+        if num in want:
+            t0 = time.perf_counter()
+            by_path[name] = phase(dev, card)
+            log(f"phase {num} ({name}): {time.perf_counter() - t0:.1f} s")
     log(f"kernel launches by path (each read from zero): {by_path}")
     kernels = [kern_a, kern_b]
     for k in kernels:

@@ -3,6 +3,8 @@ System on the same synthetic sequence, with the JAX initializer's RANSAC
 draws fed to the port (frames_per_sync=1, abortable_ba=False: the
 synchronous configuration the port implements)."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -107,17 +109,33 @@ def test_trajectory_export(runs, tmp_path):
     assert len(open(kf).readlines()) == tsys.n_keyframes()
 
 
-def test_unported_configurations_raise():
-    """frames_per_sync > 1 still raises (ROADMAP A.7); the default
-    TrackingConfig (abortable_ba=True, the staged pass) constructs."""
+def test_unported_configurations_raise(tmp_path):
+    """The depth entry points and the map checkpoints work (ROADMAP A.10 and
+    A.12 landed); loop closing still raises naming A.11 and
+    frames_per_sync > 1 naming A.7. The default TrackingConfig
+    (abortable_ba=True, the staged pass) constructs."""
     cfg = small_config(tconfig)
     cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
     staged = System(cfg.replace(tracking=tconfig.TrackingConfig()), cam, device="cpu")
     assert staged.cfg.tracking.abortable_ba and staged._n_ba_chunks == 2
-    with pytest.raises(NotImplementedError, match="A.12"):
-        staged.load_map("map.npz")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        staged.track_stereo(None, None, 0.0)
+    seq = make_synthetic_sequence(n_frames=2, h=H, w=W, seed=31, motion="orbit", K=K, world="multi",
+                                  with_depth=True, stereo_baseline=0.2)
+    f = seq.frames[0]
+    out = staged.track_rgbd(f.image, f.depth, 0.0)
+    assert out.state == "OK" and out.created_kf and staged.tracker.n_kf_host == 1
+    p = tmp_path / "map.npz"
+    staged.save_map(str(p))
+    stereo = System(cfg.replace(camera=dataclasses.replace(cfg.camera, baseline_times_fx=60.0)),
+                    cam, device="cpu")
+    u8 = lambda a: np.clip(a, 0, 255).astype(np.uint8)  # noqa: E731
+    out = stereo.track_stereo(u8(f.image), u8(f.image_right), 0.0)
+    assert out.state == "OK" and bool((stereo.tracker.m.kf_ur[0] >= 0).any())
+    stereo.load_map(str(p))
+    assert stereo.tracker.n_kf_host == 1 and stereo.tracker.state == "LOST"
+    stereo.save_trajectory_kitti(str(tmp_path / "kitti.txt"))
+    assert len(open(tmp_path / "kitti.txt").readline().split()) == 12
+    with pytest.raises(NotImplementedError, match="A.11"):
+        System(cfg, cam, device="cpu", enable_loop_closing=True)
     with pytest.raises(NotImplementedError, match="A.7"):
         System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam,
                device="cpu")

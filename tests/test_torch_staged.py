@@ -71,7 +71,10 @@ def snapshot():
 
 
 def port_problem(jprob) -> tba.BAProblem:
-    return tba.BAProblem(**{f.name: torch.from_numpy(np.array(getattr(jprob, f.name)))
+    """The JAX problem's fields as tensors (None stays None: a monocular
+    problem has no stereo planes)."""
+    get = lambda name: getattr(jprob, name)  # noqa: E731
+    return tba.BAProblem(**{f.name: None if get(f.name) is None else torch.from_numpy(np.array(get(f.name)))
                             for f in dataclasses.fields(tba.BAProblem)})
 
 

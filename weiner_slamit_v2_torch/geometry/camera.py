@@ -1,6 +1,7 @@
 """Pinhole camera with radial-tangential distortion
 (port of weiner_slamit_v2_tpu/geometry/camera.py: ``Camera``,
-``undistort_points``, ``undistorted_bounds``, ``bounds_from_config``)."""
+``undistort_points``, ``unproject``, ``undistorted_bounds``,
+``bounds_from_config``)."""
 
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ class Camera:
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
             dtype=torch.float32, device=device,
         )
+
+    def unproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Rectified pixels (..., 2) + depth (...) -> camera-frame 3D (..., 3)."""
+        x = (uv[..., 0] - self.cx) / self.fx
+        y = (uv[..., 1] - self.cy) / self.fy
+        return torch.stack([x * depth, y * depth, depth], -1)
 
     def undistort_points(self, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
         """Distorted pixels (..., 2) -> rectified pixels (..., 2): the same

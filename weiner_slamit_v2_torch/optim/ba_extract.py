@@ -1,5 +1,5 @@
 """Extract the local BA problem from the map and write results back (port of
-weiner_slamit_v2_tpu/optim/ba_extract.py, monocular; the graph-building and
+weiner_slamit_v2_tpu/optim/ba_extract.py, the local extractor; the graph-building and
 write-back halves of Optimizer::LocalBundleAdjustment,
 src/Optimizer.cc:453-615, 700-760)."""
 
@@ -14,10 +14,12 @@ from .local_ba import BAProblem, BAResult
 
 
 def extract_local_ba(m: SlamMap, center_kf: int, K, inv_sigma2_by_octave,
-                     window: int, n_fixed: int, max_points: int):
+                     window: int, n_fixed: int, max_points: int, bf: float = 0.0):
     """Local BA around ``center_kf``: cam slots [0, window) are the active
     covisible window (center first), [window, window + n_fixed) fixed
-    boundary cameras. Returns (problem, cam_ids (C,), point_ids (P,))."""
+    boundary cameras. bf > 0 (stereo / RGB-D) gathers each observation's
+    right-u (kf_ur, mvuRight) for the stereo rows. Returns (problem,
+    cam_ids (C,), point_ids (P,))."""
     dev = m.device
     W = covisibility_matrix(m)
     vals, idx = topk(W[center_kf], window - 1)
@@ -53,6 +55,7 @@ def extract_local_ba(m: SlamMap, center_kf: int, K, inv_sigma2_by_octave,
     octv = m.kf_octave[kf_safe, obs_feat]
     inv_s2 = inv_sigma2_by_octave[octv.clamp(0, inv_sigma2_by_octave.shape[0] - 1)]
     obs_valid = obs_ok & (obs_cam >= 0) & backref
+    ur = m.kf_ur[kf_safe, obs_feat]
     prob = BAProblem(
         cam_pose=m.kf_pose[cam_ids.clamp(min=0)],
         cam_fixed=torch.arange(C, device=dev) >= active.shape[0],
@@ -64,6 +67,9 @@ def extract_local_ba(m: SlamMap, center_kf: int, K, inv_sigma2_by_octave,
         obs_inv_sigma2=inv_s2,
         obs_valid=obs_valid,
         K=K,
+        obs_ur=ur if bf > 0 else None,
+        obs_has_ur=(ur >= 0) & obs_valid if bf > 0 else None,
+        bf=torch.tensor(bf, dtype=torch.float32, device=dev) if bf > 0 else None,
     )
     return prob, cam_ids, point_ids
 

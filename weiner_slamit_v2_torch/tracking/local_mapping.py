@@ -410,6 +410,7 @@ def mapping_pre(m: SlamMap, new_kf: int, K, scale_factors, sigma2, inv_sigma2, c
     prob, cam_ids, point_ids = extract_local_ba(
         m, new_kf, K, inv_sigma2, window=cfg.capacity.local_ba_window,
         n_fixed=cfg.capacity.local_ba_window, max_points=cfg.capacity.local_ba_points,
+        bf=cfg.camera.baseline_times_fx,
     )
     return m, prob, cam_ids, point_ids
 

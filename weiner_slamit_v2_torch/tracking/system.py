@@ -1,9 +1,8 @@
 """System facade: the public entry point (port of
-weiner_slamit_v2_tpu/tracking/system.py, the monocular slice;
-ORB_SLAM2::System, src/System.cc).
+weiner_slamit_v2_tpu/tracking/system.py; ORB_SLAM2::System, src/System.cc).
 
-``track_monocular`` runs tracking and, after each new keyframe, one local
-mapping pass. As in the JAX package, tracking keeps using the pre-pass map
+``track_monocular``, ``track_rgbd`` and ``track_stereo`` run tracking and,
+after each new keyframe, one local mapping pass. As in the JAX package, tracking keeps using the pre-pass map
 until the pass is adopted ``mapping_latency_frames`` frames later (the
 reference's asynchronous LocalMapping thread).
 
@@ -18,10 +17,14 @@ Two forms of the pass, as in the JAX package:
   is a ``torch.cuda.Event`` recorded after the stage's launch; on the CPU a
   stage is done when its call returns.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the fused N-frame scan (``frames_per_sync > 1``, A.7),
-stereo and RGB-D (A.10), loop closing (A.11), map checkpoints and compaction
-(A.12). Distributed BA (A.13) has no entry point yet.
+Before each frame, ``_pre_frame`` adopts a finished pass and, once the
+keyframe pool is nearly full and at least 2 slots can be reclaimed,
+compacts the map (keyframe slot ids are never reused). ``save_map`` /
+``load_map`` write and read the JAX package's npz checkpoint layout.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP item): the
+fused N-frame scan (``frames_per_sync > 1``, A.7) and loop closing (A.11).
+Distributed BA (A.13) has no entry point yet.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from ..geometry import se3
 from ..geometry.camera import Camera
 from ..io import trajectory as traj_io
 from ..optim.local_ba import BA_LAMBDA_INIT, ba_finalize, ba_phase1, ba_phase2_chunk
+from ..slam_map import checkpoint
+from ..slam_map.compaction import compact_map
 from ..util import resolve_device
 from .local_mapping import mapping_finish, mapping_pre, mapping_step
 from .tracker import Tracker, TrackerOutput
@@ -53,6 +58,11 @@ def _launched_event(device: torch.device) -> Optional[torch.cuda.Event]:
 
 def _done(ev: Optional[torch.cuda.Event]) -> bool:
     return ev is None or ev.query()
+
+
+def _frame(image):
+    """uint8 frames stay uint8 (4x fewer bytes to the card); others float32."""
+    return image if getattr(image, "dtype", None) == np.uint8 else np.asarray(image, np.float32)
 
 
 class System:
@@ -87,6 +97,7 @@ class System:
         self.staged_passes = 0       # staged passes that reached mapping_finish
         self.ba_chunks_issued = 0    # ba_phase1 + ba_phase2_chunk launches
         self.ba_chunks_aborted = 0   # the ones an abort skipped
+        self.compactions = 0
 
     @property
     def _n_ba_chunks(self) -> int:
@@ -248,27 +259,75 @@ class System:
         """Adopt any waiting mapping pass (System::Shutdown analogue)."""
         self.mapper_idle(force=True)
 
+    def compact(self) -> None:
+        """Re-pack the valid keyframes and points to the front of their
+        pools (slam_map/compaction.py) and remap every reference to the old
+        slots. Trajectory entries whose keyframe is gone are baked to
+        absolute poses (ref -1); the others are renumbered."""
+        self.finish()
+        t = self.tracker
+        m_old = t.m
+        m2, kf_map, mp_map = compact_map(m_old)
+        kf_map_np = kf_map.cpu().numpy()   # the one host read
+        if t.trajectory:
+            T_cr = torch.stack([p for _, p, _ in t.trajectory])
+            refs = np.asarray([r for _, _, r in t.trajectory])
+            refs_safe = np.maximum(refs, 0)
+            gone = (refs >= 0) & (kf_map_np[refs_safe] < 0)
+            gone_t = torch.from_numpy(gone).to(t.device)[:, None, None]
+            baked = torch.where(gone_t, T_cr @ m_old.kf_pose[torch.from_numpy(refs_safe).to(t.device)],
+                                T_cr)
+            new_refs = np.where((refs >= 0) & ~gone, kf_map_np[refs_safe], -1)
+            t.trajectory = [(ts, baked[i], int(new_refs[i])) for i, (ts, _, _) in enumerate(t.trajectory)]
+        t.m = m2
+        t.n_kf_host = int(kf_map_np.max()) + 1 if (kf_map_np >= 0).any() else 0
+        rk = int(kf_map_np[t.ref_kf]) if 0 <= t.ref_kf < len(kf_map_np) else -1
+        t.ref_kf = rk if rk >= 0 else max(t.n_kf_host - 1, 0)
+        if t.last_obs is not None:
+            t.last_obs = torch.where(t.last_obs >= 0, mp_map[t.last_obs.clamp(min=0)], -1)
+        t.bow.permute(kf_map)
+        self.compactions += 1
+
+    def _pre_frame(self) -> None:
+        """Adopt a finished mapping pass (never blocks), then compact the map
+        once the keyframe pool is nearly full and at least 2 slots can be
+        reclaimed; without reclaimable slots insertion just stays blocked
+        (``_need_new_keyframe``) until culling frees some."""
+        self.mapper_idle()
+        t = self.tracker
+        if t.n_kf_host >= t.m.max_kf - 2 and t.n_kf_host - int(t.m.kf_valid.sum()) >= 2:
+            self.compact()
+
     def track_monocular(self, image: np.ndarray, timestamp: float) -> TrackerOutput:
         """Per-frame entry (System::TrackMonocular, src/System.cc:307-361).
         image: (H, W) grayscale, uint8 or float."""
-        self.mapper_idle()
-        img = image if getattr(image, "dtype", None) == np.uint8 else np.asarray(image, np.float32)
-        return self.tracker.process_frame(img, timestamp)
+        self._pre_frame()
+        return self.tracker.process_frame(_frame(image), timestamp)
 
-    def track_rgbd(self, image, depth, timestamp: float) -> TrackerOutput:
-        raise NotImplementedError("RGB-D tracking is not ported: ROADMAP A.10")
+    def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> TrackerOutput:
+        """RGB-D entry (System::TrackRGBD, src/System.cc:260-305): image as
+        in track_monocular, depth (H, W) meters (0 = no measurement)."""
+        self._pre_frame()
+        return self.tracker.process_frame(_frame(image), timestamp,
+                                          depth=np.asarray(depth, np.float32))
 
-    def track_stereo(self, left, right, timestamp: float) -> TrackerOutput:
-        raise NotImplementedError("stereo tracking is not ported: ROADMAP A.10")
+    def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float) -> TrackerOutput:
+        """Stereo entry (System::TrackStereo, src/System.cc:215-258): a
+        rectified pair; uint8 frames pass as uint8."""
+        self._pre_frame()
+        return self.tracker.process_frame(_frame(left), timestamp, image_right=_frame(right))
 
     def save_map(self, path: str) -> None:
-        raise NotImplementedError("map checkpoints are not ported: ROADMAP A.12")
+        """Checkpoint the map (after draining the mapping pipeline)."""
+        checkpoint.save_map(path, self.map)
 
     def load_map(self, path: str) -> None:
-        raise NotImplementedError("map checkpoints are not ported: ROADMAP A.12")
-
-    def compact(self) -> None:
-        raise NotImplementedError("map compaction is not ported: ROADMAP A.12")
+        """Load a checkpoint onto this System's device and restore a live
+        session around it (tracker.load_map): the next frame relocalizes;
+        with activate_localization_mode() it only localizes."""
+        self.finish()
+        m, _ = checkpoint.load_map(path, self.device)
+        self.tracker.load_map(m)
 
     def activate_localization_mode(self) -> None:
         """Tracking only, no new keyframes (System::ActivateLocalizationMode,
@@ -302,6 +361,11 @@ class System:
         self.finish()
         ts, Twc = self.tracker.trajectory_Twc()
         traj_io.save_tum(path, ts, Twc)
+
+    def save_trajectory_kitti(self, path: str) -> None:
+        self.finish()
+        _, Twc = self.tracker.trajectory_Twc()
+        traj_io.save_kitti(path, Twc)
 
     def save_keyframe_trajectory_tum(self, path: str) -> None:
         """Keyframe-only export (SaveKeyFrameTrajectoryTUM, src/System.cc:457-491)."""
