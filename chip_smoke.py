@@ -53,10 +53,24 @@ Phases (each failure ends the run with a non-zero exit code):
  11. compaction: the phase-5 workload over 200 frames with a 12-keyframe
      pool (local BA window 6): asserts at least one compaction (System.
      compact called by the per-frame trigger), > 80 % of frames OK, finite
-     poses and the scale-aligned ATE; prints the compact() times.
-The kernel launch counts of phases 5, 7-11 are each read from zero. With
+     poses and the scale-aligned ATE; prints the compact() times;
+ 12. monocular loop closure (System(..., enable_loop_closing=True), the
+     default TrackingConfig, LoopConfig and capacities): a circle flown a
+     little over once over a plane whose start is textured apart, with the
+     keyframes and points of the start moved by the gauge drift of
+     tests/test_loop.py at half a lap. Every keyframe runs the detection;
+     what it proposes is what closes. Asserts a loop closed, the
+     scale-aligned ATE of the frames tracked before the first closure lower
+     after finish() than just before it, kernel A once per frame and B once per mapping pass, finite
+     orthonormal keyframe poses, and every adopted global BA issued in
+     1 + ceil(15 / 5) chunks; prints each closure's stage times, the essential
+     graph's device time, and the global BA's time and peak memory;
+ 13. stereo with loop closing on (the JAX campaign's config-4 proxy): phase
+     10's sequence and config; asserts phase 10's end-to-end checks and that
+     every Sim3 of every closure keeps scale 1; prints the closures.
+The kernel launch counts of phases 5, 7-13 are each read from zero. With
 phase numbers as arguments (``python3 chip_smoke.py 9 10``) only those of
-phases 7-11 run, after phases 1-6.
+phases 7-13 run, after phases 1-6.
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
 line of kernel results (launches: phase 5's), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -90,6 +104,15 @@ RGBD_SEQ = dict(seed=6, motion="orbit", world="multi", photometric_noise=2.0, wi
 STEREO_SEQ = dict(seed=7, motion="loop", world="multi", photometric_noise=2.0, with_depth=True,
                   stereo_baseline=BF / 500.0)
 COMPACT = dict(n_frames=200, max_keyframes=12, local_ba_window=6)
+# phase 12: a loop of radius 2.4 m (the out-and-back amplitude of
+# tests/test_loop.py widened to this footprint) flown 1.21 times in 176 frames
+# (~26 px per frame, the out-and-back's fastest), its start (the wedge from
+# start_wedge[0] to start_wedge[1] rad of the circle) textured apart; at half
+# a lap (frame 72) the keyframes of the first 24 frames and their points take
+# the test's gauge drift; the ATE before the first closure is read after
+# frame 80
+LOOP = dict(n_frames=176, radius=2.4, laps=1.21, depth=2.0, seed=31, apex=72, drift_frames=24,
+            eval_from=80, start_wedge=(-0.35, 1.1))
 # NVIDIA H100 SXM peaks (data sheet, 700 W): HBM bytes/s, float32 operations/s
 # outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -391,29 +414,38 @@ def uint8(img: np.ndarray) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def workload(n_frames: int, cam: dict | None = None, seq: dict | None = None, **tracking):
-    """(config, camera, sequence, uint8 frames) of the bench workload with
-    frames_per_sync=1, the given TrackingConfig fields, CameraConfig fields
-    ``cam`` and make_synthetic_sequence arguments ``seq`` (default: the
-    bench orbit)."""
+def bench_config(cam: dict | None = None, **tracking):
+    """(config, camera, K) of the bench geometry with frames_per_sync=1, the
+    given TrackingConfig fields and CameraConfig fields ``cam``."""
     from weiner_slamit_v2_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
     from weiner_slamit_v2_torch.geometry.camera import Camera
-    from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
 
     w = WORKLOAD
     H, W, f = w["H"], w["W"], w["f"]
     cx, cy = W / 2, H / 2
-    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
     cfg = SlamConfig(
         orb=OrbConfig(n_features=w["n_features"]),
         camera=CameraConfig(fx=f, fy=f, cx=cx, cy=cy, k1=0, k2=0, p1=0, p2=0, k3=0,
                             width=W, height=H, **(cam or {})),
         tracking=TrackingConfig(mapping_latency_frames=8, frames_per_sync=1, **tracking),
     )
-    seq = make_synthetic_sequence(n_frames=n_frames, h=H, w=W, K=K, motion_frames=w["motion_frames"],
+    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
+    return cfg, Camera.create(f, f, cx, cy, width=W, height=H), K
+
+
+def workload(n_frames: int, cam: dict | None = None, seq: dict | None = None, **tracking):
+    """(config, camera, sequence, uint8 frames) of the bench workload
+    (bench_config) over make_synthetic_sequence arguments ``seq`` (default:
+    the bench orbit)."""
+    from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+
+    w = WORKLOAD
+    cfg, camera, K = bench_config(cam, **tracking)
+    seq = make_synthetic_sequence(n_frames=n_frames, h=w["H"], w=w["W"], K=K,
+                                  motion_frames=w["motion_frames"],
                                   **(seq or dict(seed=w["seed"], motion="orbit")))
     images = [uint8(fr.image) for fr in seq.frames]
-    return cfg, Camera.create(f, f, cx, cy, width=W, height=H), seq, images
+    return cfg, camera, seq, images
 
 
 def reset_launches() -> None:
@@ -837,6 +869,348 @@ def phase_compact(dev, card: str) -> dict:
     return launches
 
 
+def triangle_texture(h: int, w: int, rng, n: int) -> np.ndarray:
+    """n random gray triangles (sides ~6-30 px) on black, in [0, 1]."""
+    img = np.zeros((h, w), np.float32)
+    for _ in range(n):
+        P = np.array([rng.integers(0, w), rng.integers(0, h)]) + rng.normal(0, rng.uniform(6, 30), (3, 2))
+        (x0, y0), (x1, y1) = np.maximum(np.floor(P.min(0)), 0).astype(int), np.minimum(
+            np.ceil(P.max(0)), [w - 1, h - 1]).astype(int)
+        (ax, ay), (bx, by), (cx, cy) = P
+        d = (by - cy) * (ax - cx) + (cx - bx) * (ay - cy)
+        if x1 <= x0 or y1 <= y0 or abs(d) < 1e-6:
+            continue
+        Y, X = np.mgrid[y0:y1, x0:x1]
+        l1 = ((by - cy) * (X - cx) + (cx - bx) * (Y - cy)) / d
+        l2 = ((cy - ay) * (X - cx) + (ax - cx) * (Y - cy)) / d
+        img[y0:y1, x0:x1][(l1 >= 0) & (l2 >= 0) & (l1 + l2 <= 1)] = rng.uniform(0, 1)
+    return img
+
+
+def loop_sequence(n_frames: int, radius: float, laps: float, depth: float, seed: int,
+                  start_wedge: tuple[float, float]):
+    """A circle of ``radius`` over a textured plane at ``depth``, flown
+    ``laps`` times (a little over once): the camera comes back to its start
+    views after one lap, with the far side of the circle disjoint from the
+    start (2 radius against the footprint W / f x depth), so only a loop
+    closure can join the two ends. Starts at (-radius, 0), like
+    tests/test_loop.py::disjoint_out_and_back, at its speed. The plane is the
+    blocky value noise of the other phases, whose views give near-identical
+    BoW vectors; the wedge of the circle at ``start_wedge`` (rad from the
+    start, in the direction of flight) is textured with triangles over that
+    noise instead, so the bag of words tells the start's views from the rest
+    and loop detection proposes start keyframes on the revisit."""
+    from weiner_slamit_v2_torch.io.datasets import FrameData, Sequence, SyntheticWorld, _perlin_texture
+
+    w = WORKLOAD
+    H, W, f = w["H"], w["W"], w["f"]
+    _, _, K = bench_config()
+    rng = np.random.default_rng(seed)
+    ppm = f / depth
+    th, tw = int((2 * radius + H / f * depth + 1.0) * ppm), int((2 * radius + W / f * depth + 1.0) * ppm)
+    texture = _perlin_texture(th, tw, rng)
+    start = 0.7 * triangle_texture(th, tw, rng, th * tw // 400) + 0.3 * _perlin_texture(th, tw, rng) / 255.0
+    Y, X = np.mgrid[0:th, 0:tw]
+    ang = np.angle(-((X - tw / 2) + 1j * (Y - th / 2)))      # 0 at the start, increasing with flight
+    wedge = (ang > start_wedge[0]) & (ang < start_wedge[1])
+    texture = np.where(wedge, start / start.max() * 255.0, texture).astype(np.float32)
+    world = SyntheticWorld(texture=texture, K=K, plane_depth=depth, pixels_per_meter=ppm)
+    frames, gt = [], np.zeros((n_frames, 4, 4))
+    for i in range(n_frames):
+        th = np.pi + 2 * np.pi * laps * i / (n_frames - 1)
+        gt[i] = np.eye(4)
+        gt[i, :3, 3] = [radius * np.cos(th), radius * np.sin(th), 0.0]
+        frames.append(FrameData(timestamp=i / 30.0, image=world.render(np.linalg.inv(gt[i]), H, W)))
+    return Sequence(frames=frames, gt_Twc=gt)
+
+
+def inject_drift(t, n_frames: int) -> int:
+    """tests/test_loop.py:196-219: the keyframes of the first ``n_frames``
+    frames and the points they created moved by a gauge drift G (0.1 rad
+    about y, (0.25, 0.1, 0.15) m). Returns the number of keyframes moved."""
+    from weiner_slamit_v2_torch.geometry import se3
+
+    m = t.m
+    G = np.eye(4, dtype=np.float32)
+    G[:3, 3] = [0.25, 0.1, 0.15]
+    c, s = np.cos(0.1), np.sin(0.1)
+    G[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    G = torch.from_numpy(G).to(m.device)
+    kf_sel = (m.kf_frame_id < n_frames) & (m.kf_frame_id >= 0) & m.kf_valid
+    mp_sel = torch.isin(m.mp_first_kf, torch.nonzero(kf_sel).flatten().int()) & m.mp_valid
+    t.m = m.replace(kf_pose=torch.where(kf_sel[:, None, None], m.kf_pose @ se3.inv(G)[None], m.kf_pose),
+                    mp_pos=torch.where(mp_sel[:, None], se3.apply(G, m.mp_pos), m.mp_pos))
+    return int(kf_sel.sum())
+
+
+class LoopWatch:
+    """Host times (card synchronized before and after) of the loop closer's
+    stages, per closure attempt, and the global BAs' lifetimes: chunks
+    issued, enqueue-to-adoption time, peak device memory in between. The
+    patched functions are restored by close()."""
+
+    STAGES = [("matcher", "match_by_descriptor", "bow_match"),
+              ("sim3_solver", "ransac_sim3", "ransac"), ("loop_closing", "search_by_sim3", "search_by_sim3"),
+              ("sim3_solver", "refine_sim3", "refine"),
+              ("loop_closing", "_project_loop_points", "projection_40"),
+              ("loop_closing", "_propagate_and_fuse", "propagate_fuse"),
+              ("loop_closing", "_search_and_fuse", "search_and_fuse"),
+              ("loop_closing", "optimize_pose_graph", "essential_graph")]
+
+    def __init__(self, lc, on_graph=None):
+        from weiner_slamit_v2_torch.frontend import matcher
+        from weiner_slamit_v2_torch.optim import sim3_solver
+        from weiner_slamit_v2_torch.tracking import loop_closing
+
+        self.mods = {"matcher": matcher, "sim3_solver": sim3_solver, "loop_closing": loop_closing}
+        self.in_close = False
+        self.lc, self.on_graph = lc, on_graph
+        self.attempts, self.detect_ms, self.gbas, self.graph_args = [], [], [], None
+        self.saved = [(mod, attr, getattr(self.mods[mod], attr)) for mod, attr, _ in self.STAGES]
+        for (mod, attr, name), (_, _, fn) in zip(self.STAGES, self.saved):
+            setattr(self.mods[mod], attr, self._stage(name, fn))
+        self._detect, self._close = lc._detect, lc._close
+        self._enqueue, self._poll = lc._enqueue_global_ba, lc.poll_global_ba
+        lc._detect, lc._close = self.detect, self.close_attempt
+        lc._enqueue_global_ba, lc.poll_global_ba = self.enqueue, self.poll
+
+    @staticmethod
+    def _ms(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, round((time.perf_counter() - t0) * 1e3, 3)
+
+    def _stage(self, name, fn):
+        def run(*args, **kwargs):
+            if not self.in_close:     # the matcher also serves relocalization
+                return fn(*args, **kwargs)
+            out, ms = self._ms(fn, *args, **kwargs)
+            a = self.attempts[-1]
+            a[name] = ms
+            # what each gate saw: matches, inliers, loop matches
+            if name in ("ransac", "refine"):
+                a[name + "_inliers"] = int(out[2])
+            elif name in ("bow_match", "search_by_sim3", "projection_40"):
+                a[name + "_matches"] = int(((out[0] if name == "bow_match" else out) >= 0).sum())
+            if name == "essential_graph":
+                if self.graph_args is None:
+                    self.graph_args = (args, kwargs)
+                if self.on_graph is not None:
+                    self.on_graph(args, kwargs, out)
+            return out
+        return run
+
+    def detect(self, kf_id):
+        out, ms = self._ms(self._detect, kf_id)
+        self.detect_ms.append((kf_id, ms))
+        return out
+
+    def close_attempt(self, kf_id, cand):
+        self.attempts.append(dict(kf=kf_id, cand=cand, detect=self.detect_ms[-1][1]))
+        self.in_close = True
+        try:
+            ok, ms = self._ms(self._close, kf_id, cand)
+        finally:
+            self.in_close = False
+        self.attempts[-1].update(closed=ok, close_total=ms)
+        return ok
+
+    def enqueue(self, gauge_kf):
+        if self.gbas and self.gbas[-1]["adopted_ms"] is None:
+            self.gbas[-1]["superseded"] = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        issued = self.lc.gba_chunks_issued
+        self._enqueue(gauge_kf)
+        self.gbas.append(dict(t0=t0, issued0=issued, base=base, adopted_ms=None, superseded=False))
+
+    def poll(self, force: bool = False):
+        adopted = self._poll(force)
+        if adopted:
+            torch.cuda.synchronize()
+            g = self.gbas[-1]
+            g.update(adopted_ms=round((time.perf_counter() - g["t0"]) * 1e3, 3),
+                     chunks=self.lc.gba_chunks_issued - g["issued0"],
+                     peak_bytes=torch.cuda.max_memory_allocated(), base_bytes=g["base"])
+        return adopted
+
+    def close(self):
+        for mod, attr, fn in self.saved:
+            setattr(self.mods[mod], attr, fn)
+        lc = self.lc
+        del lc._detect, lc._close, lc._enqueue_global_ba, lc.poll_global_ba
+
+    def closures(self):
+        return [{k: v for k, v in a.items() if k != "closed"} for a in self.attempts if a["closed"]]
+
+
+def phase_loop(dev, card: str) -> dict:
+    """Phase 12: monocular loop closure at full width."""
+    from weiner_slamit_v2_torch.config import LoopConfig, TrackingConfig
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+    from weiner_slamit_v2_torch.optim.ba_extract import extract_global_ba
+    from weiner_slamit_v2_torch.optim.local_ba import ba_finalize, ba_phase1, ba_phase2_chunk
+    from weiner_slamit_v2_torch.optim.pose_graph import optimize_pose_graph
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    L = LOOP
+    cfg, cam, _ = bench_config()
+    cfg = cfg.replace(tracking=TrackingConfig(), loop=LoopConfig())
+    seq = loop_sequence(L["n_frames"], L["radius"], L["laps"], L["depth"], L["seed"], L["start_wedge"])
+    images = [uint8(fr.image) for fr in seq.frames]
+    sys_ = System(cfg, cam, enable_loop_closing=True)
+    t, lc = sys_.tracker, sys_.loop_closer
+    check(not lc.fix_scale and sys_.device.type == "cuda", "monocular loop closer on the card")
+
+    def traj_ate(n=None):
+        """Scale-aligned ATE of the first n trajectory entries (all: None),
+        each against the ground truth of its own frame."""
+        ts, Twc = t.trajectory_Twc()
+        idx = np.rint(np.asarray(ts[:n]) * 30.0).astype(int)     # timestamps are i / 30
+        return ate_rmse(Twc[:n], seq.gt_Twc[idx]), len(idx)
+
+    watch = LoopWatch(lc)
+    ate_pre, n_pre, moved, first_close, inliers = [None], [None], [0], [None], []
+
+    def on_frame(i, out):
+        inliers.append((out.n_inliers, int(t.m.kf_valid.sum())))
+        if i == L["apex"]:
+            sys_.finish()
+            moved[0] = inject_drift(t, L["drift_frames"])
+        if lc.n_loops_closed and first_close[0] is None:
+            first_close[0] = i
+        if i > L["eval_from"] and lc.n_loops_closed == 0:
+            ate_pre[0], n_pre[0] = traj_ate()
+
+    reset_launches()
+    try:
+        states, frame_ms = drive(sys_, images, seq, on_frame=on_frame)
+    finally:
+        watch.close()
+    launches = read_launches()
+    # the closure and the global BA correct the frames tracked before it;
+    # the frames after it are not part of the comparison
+    ate_post, _ = traj_ate(n_pre[0])
+    ate_all, n_all = traj_ate()
+    m = sys_.map
+    poses = m.kf_pose[m.kf_valid]
+    R = poses[:, :3, :3]
+    ortho = float((R @ R.transpose(-1, -2) - torch.eye(3, device=dev)).abs().max())
+    init = states.index("OK")
+    steady = frame_ms[init + 1:]
+    closures = watch.closures()
+    adopted = [g for g in watch.gbas if g["adopted_ms"] is not None]
+    frame_of = m.kf_frame_id.tolist()
+    log(f"loop: {L}, {cfg.loop}; init at frame {init}, {sum(s == 'OK' for s in states)} OK "
+        f"of {len(states)}, LOST frames {[i for i, s in enumerate(states) if s == 'LOST']}; drift moved "
+        f"{moved[0]} keyframes; keyframes created {t.n_kf_host} (valid {sys_.n_keyframes()}), points "
+        f"{sys_.n_map_points()}, staged passes {sys_.staged_passes}; loops closed {lc.n_loops_closed} "
+        f"(first on frame {first_close[0]}), closure attempts {len(watch.attempts)}, loop edges (loop "
+        f"keyframe, its frame; current keyframe, its frame) "
+        f"{[(i, frame_of[i], j, frame_of[j]) for i, j, _ in lc.loop_edges]}; ATE of the {n_pre[0]} frames tracked before the first closure: "
+        f"{ate_pre[0]} m just before it, {ate_post:.5f} m after finish(); ATE of all {n_all} frames "
+        f"after finish() {ate_all:.5f} m; largest |R R^T - I| {ortho:.2e}; resets {t.resets}; launches "
+        f"{launches}; per frame (inliers, valid keyframes) {inliers}")
+    log(f"loop: median {np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} ms/frame, max "
+        f"{max(steady):.3f} ms; detect ms per keyframe median "
+        f"{np.median([ms for _, ms in watch.detect_ms]) if watch.detect_ms else 0:.3f} "
+        f"({len(watch.detect_ms)} calls) on {card}")
+    for c in closures:
+        log(f"loop closure stage ms (host clock, card synchronized): {c}")
+    for g in watch.gbas:
+        log(f"loop global BA: chunks issued {g.get('chunks')}, superseded {g['superseded']}, enqueue to "
+            f"adoption {g['adopted_ms']} ms, peak device memory {g.get('peak_bytes')} B (allocated at "
+            f"enqueue {g['base']} B)")
+
+    # the essential graph of the first closure, device time; the global BA
+    # alone on the final map, host time synchronized and peak memory
+    if watch.graph_args is not None:
+        args, kwargs = watch.graph_args
+        try:
+            pg_ms, how = device_ms(lambda: optimize_pose_graph(*args, **kwargs), reps=3, loops=3), "graph replay"
+        except RuntimeError as e:   # a solver that cannot be captured: timed by events
+            log(f"loop: optimize_pose_graph not capturable ({str(e).splitlines()[0]})")
+            pg_ms, how = eager_ms(lambda: optimize_pose_graph(*args, **kwargs), reps=3, loops=3), "events"
+        log(f"loop: optimize_pose_graph device time {pg_ms:.5f} ms ({how}; {int(args[1].sum())} valid of "
+            f"{args[0].shape[0]} keyframe slots, {args[3].shape[0]} edges, {kwargs}) on {card}")
+    gauge = int(torch.nonzero(m.kf_valid)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prob, _, _ = extract_global_ba(m, t.K, t.inv_sigma2, gauge_kf=gauge)
+    cam_pose, points, lam, inlier = ba_phase1(prob, n_iters=5)
+    for _ in range(-(-(cfg.optim.global_ba_iters - 5) // cfg.tracking.ba_chunk_iters)):
+        cam_pose, points, lam = ba_phase2_chunk(prob, cam_pose, points, lam, inlier,
+                                                n_iters=cfg.tracking.ba_chunk_iters)
+    res = ba_finalize(prob, cam_pose, points)
+    torch.cuda.synchronize()
+    gba_ms = (time.perf_counter() - t0) * 1e3
+    log(f"loop: global BA alone on the final map ({prob.cam_pose.shape[0]} camera slots, "
+        f"{prob.points.shape[0]} point slots x {prob.obs_cam.shape[1]} observations; {int(m.kf_valid.sum())} "
+        f"keyframes, {int(m.mp_valid.sum())} points valid): {gba_ms:.3f} ms host time synchronized, peak "
+        f"device memory {torch.cuda.max_memory_allocated()} B ({base} B allocated before), final cost "
+        f"{float(res.final_cost):.4f} on {card}")
+
+    check(lc.n_loops_closed >= 1, f"no loop closed: attempts {watch.attempts}")
+    check(ate_pre[0] is not None and np.isfinite(ate_post) and ate_post < ate_pre[0],
+          f"ATE of the frames before the closure, after finish() {ate_post} !< before {ate_pre[0]}")
+    check(launches["fast_score_nms"] == len(images), f"{launches}, want A once per frame")
+    check(launches["windowed_best2"] >= sys_.staged_passes >= sys_.mapping_passes > 0,
+          f"{launches}, passes {sys_.staged_passes}")
+    check(bool(torch.isfinite(poses).all()) and ortho < 1e-4, f"keyframe poses: |R R^T - I| {ortho}")
+    check(lc._pending_gba is None and adopted and all(g["chunks"] == 1 + -(-(cfg.optim.global_ba_iters - 5)
+                                                                         // cfg.tracking.ba_chunk_iters)
+                                                        for g in adopted),
+          f"global BAs {watch.gbas}")
+    check(bool(torch.isfinite(res.cam_pose).all()), "global BA alone: non-finite poses")
+    return launches
+
+
+def phase_stereo_loop(dev, card: str) -> dict:
+    """Phase 13: phase 10 with loop closing on (fix_scale)."""
+    from weiner_slamit_v2_torch.geometry import sim3
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    cfg, cam, seq, images = workload(DEPTH_FRAMES, cam=dict(baseline_times_fx=BF,
+                                     depth_threshold=DEPTH_THRESHOLD), seq=STEREO_SEQ)
+    cfg = cfg.replace(sensor="stereo")
+    rights = [uint8(fr.image_right) for fr in seq.frames]
+    sys_ = System(cfg, cam, enable_loop_closing=True)
+    lc = sys_.loop_closer
+    check(lc.fix_scale, "stereo loop closer without fix_scale")
+    scale_dev = []
+
+    def on_graph(args, kwargs, S_opt):
+        valid = args[1]
+        check(kwargs.get("fix_scale") is True, f"essential graph without fix_scale: {kwargs}")
+        scale_dev.append(max(float((sim3.scale_of(S_opt[valid]) - 1).abs().max()),
+                             float((sim3.scale_of(args[5]) - 1).abs().max())))
+
+    watch = LoopWatch(lc, on_graph)
+    feed = lambda i, img: sys_.track_stereo(img, rights[i], i / 30.0)  # noqa: E731
+    reset_launches()
+    try:
+        states, frame_ms = drive(sys_, images, seq, feed=feed)
+    finally:
+        watch.close()
+    launches = read_launches()
+    depth_asserts("stereo+loop", sys_, states, frame_ms, launches, seq, 2, card)
+    log(f"stereo+loop: loops closed {lc.n_loops_closed}, closure attempts {len(watch.attempts)}, detections "
+        f"{len(watch.detect_ms)}, closures {watch.closures()}, global BAs {watch.gbas}, largest |scale - 1| "
+        f"over each closure's edges and poses {scale_dev} on {card}")
+    check(all(d <= 1e-6 for d in scale_dev) and len(scale_dev) == lc.n_loops_closed,
+          f"a closure moved a scale: {scale_dev}")
+    if not scale_dev:
+        log("stereo+loop: no loop closed, so no Sim3 scale was checked on the card (fix_scale is "
+            "held by the CPU tests)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -864,11 +1238,12 @@ def main() -> int:
                   .frames[1].image)
     kern_a = phase_kernel_a(frame, dev)
     phase_kernel_b(dev)
-    want = {int(a) for a in sys.argv[1:]} or set(range(7, 12))
+    want = {int(a) for a in sys.argv[1:]} or set(range(7, 14))
     launches, captured = phase_slice(dev, card)
     kern_b = phase_kernel_b_fuse(captured, dev)
     paths = [(7, "reloc", phase_reloc), (8, "reset", lambda d, c: phase_reset(d)),
-             (9, "rgbd", phase_rgbd), (10, "stereo", phase_stereo), (11, "compact", phase_compact)]
+             (9, "rgbd", phase_rgbd), (10, "stereo", phase_stereo), (11, "compact", phase_compact),
+             (12, "loop", phase_loop), (13, "stereo_loop", phase_stereo_loop)]
     by_path = {"slice": launches}
     for num, name, phase in paths:
         if num in want:

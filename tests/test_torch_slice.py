@@ -110,10 +110,10 @@ def test_trajectory_export(runs, tmp_path):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """The depth entry points and the map checkpoints work (ROADMAP A.10 and
-    A.12 landed); loop closing still raises naming A.11 and
-    frames_per_sync > 1 naming A.7. The default TrackingConfig
-    (abortable_ba=True, the staged pass) constructs."""
+    """The depth entry points, the map checkpoints and loop closing work
+    (ROADMAP A.10, A.12 and A.11 landed); frames_per_sync > 1 still raises
+    naming A.7. The default TrackingConfig (abortable_ba=True, the staged
+    pass) constructs."""
     cfg = small_config(tconfig)
     cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
     staged = System(cfg.replace(tracking=tconfig.TrackingConfig()), cam, device="cpu")
@@ -134,8 +134,8 @@ def test_unported_configurations_raise(tmp_path):
     assert stereo.tracker.n_kf_host == 1 and stereo.tracker.state == "LOST"
     stereo.save_trajectory_kitti(str(tmp_path / "kitti.txt"))
     assert len(open(tmp_path / "kitti.txt").readline().split()) == 12
-    with pytest.raises(NotImplementedError, match="A.11"):
-        System(cfg, cam, device="cpu", enable_loop_closing=True)
+    looping = System(cfg, cam, device="cpu", enable_loop_closing=True)
+    assert looping.loop_closer is not None and not looping.loop_closer.fix_scale
     with pytest.raises(NotImplementedError, match="A.7"):
         System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam,
                device="cpu")

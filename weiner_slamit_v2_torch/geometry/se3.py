@@ -42,6 +42,36 @@ def _coeffs(omega: torch.Tensor):
     return a, b, c
 
 
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation: 3-vector -> 3x3 rotation matrix (batched)."""
+    a, b, _ = _coeffs(omega)
+    K = hat(omega)
+    eye = _eye(3, omega, K.shape[:-2])
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> 3-vector (batched), by atan2 of (sin, cos): finite
+    derivatives at the identity, where pose-graph residuals start."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], -1)
+    sin_theta = 0.5 * torch.sqrt((vee * vee).sum(-1) + _EPS * _EPS)
+    theta = torch.atan2(sin_theta, cos_theta)
+    scale = torch.where(sin_theta > _EPS, theta / (2.0 * torch.clamp(sin_theta, min=_EPS)),
+                        0.5 + theta * theta / 12.0)
+    return vee * scale[..., None]
+
+
+def _left_jacobian(omega: torch.Tensor) -> torch.Tensor:
+    """SO(3) left Jacobian V: exp([u, w]) has translation V @ u."""
+    _, b, c = _coeffs(omega)
+    K = hat(omega)
+    eye = _eye(3, omega, K.shape[:-2])
+    return eye + b[..., None, None] * K + c[..., None, None] * (K @ K)
+
+
 def exp(xi: torch.Tensor) -> torch.Tensor:
     """SE(3) exponential: [upsilon, omega] -> 4x4 (batched)."""
     upsilon, omega = xi[..., :3], xi[..., 3:]
@@ -54,11 +84,19 @@ def exp(xi: torch.Tensor) -> torch.Tensor:
     return from_rt(R, (V @ upsilon[..., None])[..., 0])
 
 
+def log(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) logarithm: 4x4 -> [upsilon, omega] (batched)."""
+    omega = so3_log(T[..., :3, :3])
+    V = _left_jacobian(omega)
+    upsilon = torch.linalg.solve_ex(V, T[..., :3, 3:4])[0][..., 0]   # no host check
+    return torch.cat([upsilon, omega], -1)
+
+
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble 4x4 from rotation (...,3,3) and translation (...,3)."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     top = torch.cat([R.expand(*batch, 3, 3), t.expand(*batch, 3)[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]   # made on the device: no host copy
     return torch.cat([top, bottom.expand(*batch, 1, 4)], -2)
 
 
@@ -112,3 +150,14 @@ def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
     use2 = (m11 > m22)[..., None]
     q = torch.where(use0, c0, torch.where(use1, c1, torch.where(use2, c2, c3)))
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rot_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [qx, qy, qz, qw] -> rotation matrix (batched)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)

@@ -25,7 +25,7 @@ from ..slam_map import types as mt
 from ..slam_map.covisibility import covisibility_matrix
 from ..slam_map.point_stats import predict_octave, refresh_point_stats_touched
 from ..slam_map.types import SlamMap
-from ..util import nanmedian, put, topk
+from ..util import nanmedian, put, put_last, topk
 
 
 def _median_depth_of_kf(m: SlamMap, kf_id: int) -> torch.Tensor:
@@ -172,10 +172,14 @@ def _fuse_match_in_kfs(m: SlamMap, pid, p_ok_in, targets, K, scale_factors, inv_
 
 
 def _fuse_points_into_kf(m: SlamMap, pts_mask, dst: int, K, scale_factors, inv_sigma2_by_oct,
-                         cfg: SlamConfig, max_points: int, window_mult: float = 3.0) -> SlamMap:
+                         cfg: SlamConfig, max_points: int, window_mult: float = 3.0,
+                         prefer_src: bool = False) -> SlamMap:
     """ORBmatcher::Fuse of candidate points into keyframe ``dst`` with the
     add / merge (MapPoint::Replace, src/MapPoint.cc:183-221) updates; plain
-    distance matrix, as the JAX package does here."""
+    distance matrix, as the JAX package does here. window_mult is 3 in
+    SearchInNeighbors and 4 in the loop's SearchAndFuse (LoopClosing.cc:612);
+    prefer_src makes the projected point win every merge (loop fusion,
+    LoopClosing.cc:540-556), not the more-observed one."""
     L = scale_factors.shape[0]
     already = (m.mp_obs_kf == dst).any(1)
     cand = pts_mask & m.mp_valid & ~already
@@ -211,12 +215,14 @@ def _fuse_points_into_kf(m: SlamMap, pts_mask, dst: int, K, scale_factors, inv_s
     mp_valid = m.mp_valid
     merge = ok & (q >= 0) & (q != p) & mp_valid[q.clamp(min=0)]
     qs = q.clamp(min=0)
-    p_wins = n_obs[p] >= n_obs[qs]
+    p_wins = torch.ones_like(merge) if prefer_src else n_obs[p] >= n_obs[qs]
     winner = torch.where(p_wins, p, qs)
     loser = torch.where(p_wins, qs, p)
     Mx = m.max_mp
-    r = put(torch.arange(Mx, dtype=torch.int32, device=m.device),
-            torch.where(merge, loser, Mx), torch.where(merge, winner, -1))
+    # a point dst sees at two features can lose twice: the later feature's
+    # winner takes its slot, as in the JAX package
+    r = put_last(torch.arange(Mx, dtype=torch.int32, device=m.device),
+                 torch.where(merge, loser, Mx), torch.where(merge, winner, -1))
     r = r[r.long()]
     kf_obs = torch.where(kf_obs >= 0, r[kf_obs.clamp(min=0)], kf_obs)
     lw = torch.where(merge, winner, Mx)

@@ -17,14 +17,19 @@ Two forms of the pass, as in the JAX package:
   is a ``torch.cuda.Event`` recorded after the stage's launch; on the CPU a
   stage is done when its call returns.
 
-Before each frame, ``_pre_frame`` adopts a finished pass and, once the
-keyframe pool is nearly full and at least 2 slots can be reclaimed,
-compacts the map (keyframe slot ids are never reused). ``save_map`` /
-``load_map`` write and read the JAX package's npz checkpoint layout.
+With ``enable_loop_closing=True`` each adopted pass is followed by the loop
+closer (tracking/loop_closing.py), whose global BA runs in chunks between
+frames and is adopted only while no mapping pass is in flight.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item): the
-fused N-frame scan (``frames_per_sync > 1``, A.7) and loop closing (A.11).
-Distributed BA (A.13) has no entry point yet.
+Before each frame, ``_pre_frame`` adopts a finished pass (and a finished
+global BA) and, once the keyframe pool is nearly full and at least 2 slots
+can be reclaimed, compacts the map (keyframe slot ids are never reused).
+``save_map`` / ``load_map`` write and read the JAX package's npz checkpoint
+layout.
+
+Not ported: the fused N-frame scan (``frames_per_sync > 1``; the tracker
+raises ``NotImplementedError`` naming ROADMAP A.7). Distributed BA (A.13) has
+no entry point yet.
 """
 
 from __future__ import annotations
@@ -41,23 +46,10 @@ from ..io import trajectory as traj_io
 from ..optim.local_ba import BA_LAMBDA_INIT, ba_finalize, ba_phase1, ba_phase2_chunk
 from ..slam_map import checkpoint
 from ..slam_map.compaction import compact_map
-from ..util import resolve_device
+from ..util import event_done, launched_event, resolve_device
 from .local_mapping import mapping_finish, mapping_pre, mapping_step
+from .loop_closing import LoopCloser
 from .tracker import Tracker, TrackerOutput
-
-
-def _launched_event(device: torch.device) -> Optional[torch.cuda.Event]:
-    """An event recorded after the work just enqueued on ``device`` (None on
-    the CPU, where that work has already run)."""
-    if device.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record()
-    return ev
-
-
-def _done(ev: Optional[torch.cuda.Event]) -> bool:
-    return ev is None or ev.query()
 
 
 def _frame(image):
@@ -70,13 +62,12 @@ class System:
                  device=None, enable_mapping: bool = True, enable_loop_closing: bool = False,
                  mapping_neighbors: int | None = None):
         self.cfg = cfg or SlamConfig()
-        if enable_loop_closing:
-            raise NotImplementedError("loop closing is not ported: ROADMAP A.11")
         cc = self.cfg.camera
         self.camera = camera or Camera.create(cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2,
                                               cc.p1, cc.p2, cc.k3, cc.width, cc.height)
         self.device = resolve_device(device)
         self.tracker = Tracker(self.cfg, self.camera, self.device)
+        self.loop_closer = LoopCloser(self.cfg, self.tracker) if enable_loop_closing else None
         self.enable_mapping = enable_mapping
         self.mapping_neighbors = (mapping_neighbors if mapping_neighbors is not None
                                   else self.cfg.mapping.triangulation_neighbors)
@@ -110,6 +101,8 @@ class System:
         self._pending_map = self._pending_event = self._pending_counters = None
         self._pending_kf = -1
         self._stage = None
+        if self.loop_closer is not None:
+            self.loop_closer.discard_pending_gba()
 
     def _on_new_keyframe(self, kf_id: int) -> None:
         if self.localization_only:
@@ -120,11 +113,11 @@ class System:
             m, prob, cam_ids, point_ids = mapping_pre(*args, n_neighbors=self.mapping_neighbors)
             self._stage = dict(name="pre", kf=kf_id, m=m, prob=prob, cam_ids=cam_ids,
                                point_ids=point_ids, ba_state=None,
-                               chunks_left=self._n_ba_chunks, event=_launched_event(self.device))
+                               chunks_left=self._n_ba_chunks, event=launched_event(self.device))
             self._pending_map = self._pending_event = None
         else:
             self._pending_map = mapping_step(*args, n_neighbors=self.mapping_neighbors)
-            self._pending_event = _launched_event(self.device)
+            self._pending_event = launched_event(self.device)
             self._stage = None
         self._pending_kf = kf_id
         # tracking keeps counting visible/found while the pass waits; adoption
@@ -136,7 +129,7 @@ class System:
         s = self._stage
         self._pending_map = mapping_finish(s["m"], s["kf"], res, s["prob"], s["cam_ids"],
                                            s["point_ids"], self.cfg)
-        self._pending_event = _launched_event(self.device)
+        self._pending_event = launched_event(self.device)
         self._stage = None
         self.staged_passes += 1
 
@@ -148,7 +141,7 @@ class System:
         s = self._stage
         if s is None:
             return self._pending_map is not None
-        if not (abort or eager or _done(s["event"])):
+        if not (abort or eager or event_done(s["event"])):
             return False
         o, t = self.cfg.optim, self.cfg.tracking
         if s["name"] == "pre":
@@ -159,7 +152,7 @@ class System:
                 return True
             s["ba_state"] = ba_phase1(s["prob"], n_iters=o.local_ba_iters1)
             s["name"] = "ba"
-            s["event"] = _launched_event(self.device)
+            s["event"] = launched_event(self.device)
             self.ba_chunks_issued += 1
             return False
         cam_pose, points, lam, inlier = s["ba_state"]
@@ -169,7 +162,7 @@ class System:
             s["ba_state"] = (*ba_phase2_chunk(s["prob"], cam_pose, points, lam, inlier,
                                               n_iters=t.ba_chunk_iters), inlier)
             s["chunks_left"] -= 1
-            s["event"] = _launched_event(self.device)
+            s["event"] = launched_event(self.device)
             self.ba_chunks_issued += 1
             return False
         # every chunk ran, or an abort: finalize the best state so far
@@ -208,7 +201,7 @@ class System:
         busy = self.tracker.frame_id - self._mapping_enqueued_frame
         if not force and busy < self.cfg.tracking.mapping_latency_frames:
             return False
-        if not (force or chained or _done(self._pending_event)):
+        if not (force or chained or event_done(self._pending_event)):
             return False
         t = self.tracker
         m, kf_id = self._pending_map, self._pending_kf
@@ -223,6 +216,8 @@ class System:
         self._reanchor_culled_trajectory(prev_kf_valid)
         if t.ref_kf == kf_id and t.last_kf_frame == t.frame_id:
             t.last_Tcw = t.m.kf_pose[kf_id]
+        if self.loop_closer is not None:
+            self.loop_closer.on_keyframe(kf_id)
         return True
 
     def _reanchor_culled_trajectory(self, prev_kf_valid) -> None:
@@ -256,8 +251,11 @@ class System:
                 t.ref_kf = new_ref
 
     def finish(self) -> None:
-        """Adopt any waiting mapping pass (System::Shutdown analogue)."""
+        """Adopt any waiting mapping pass, then any global BA in flight
+        (System::Shutdown analogue)."""
         self.mapper_idle(force=True)
+        if self.loop_closer is not None:
+            self.loop_closer.poll_global_ba(force=True)
 
     def compact(self) -> None:
         """Re-pack the valid keyframes and points to the front of their
@@ -286,14 +284,25 @@ class System:
         if t.last_obs is not None:
             t.last_obs = torch.where(t.last_obs >= 0, mp_map[t.last_obs.clamp(min=0)], -1)
         t.bow.permute(kf_map)
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.consistency_counts.clear()
+            if lc.last_loop_kf >= 0:
+                lc.last_loop_kf = int(kf_map_np[lc.last_loop_kf])
+            lc.loop_edges = [(int(kf_map_np[i]), int(kf_map_np[j]), S) for i, j, S in lc.loop_edges
+                             if kf_map_np[i] >= 0 and kf_map_np[j] >= 0]
         self.compactions += 1
 
     def _pre_frame(self) -> None:
-        """Adopt a finished mapping pass (never blocks), then compact the map
-        once the keyframe pool is nearly full and at least 2 slots can be
+        """Adopt a finished mapping pass (never blocks), then a finished
+        global BA, but only while no pass is in flight (the pass's snapshot
+        predates the BA and would overwrite it); then compact the map once
+        the keyframe pool is nearly full and at least 2 slots can be
         reclaimed; without reclaimable slots insertion just stays blocked
         (``_need_new_keyframe``) until culling frees some."""
         self.mapper_idle()
+        if self.loop_closer is not None and self._pending_map is None and self._stage is None:
+            self.loop_closer.poll_global_ba()
         t = self.tracker
         if t.n_kf_host >= t.m.max_kf - 2 and t.n_kf_host - int(t.m.kf_valid.sum()) >= 2:
             self.compact()

@@ -3,7 +3,10 @@
 * ``put``: the ``x.at[idx].set/add/min/max(v, mode="drop")`` scatter. Out of
   range indices are dropped, not raised (JAX's "drop" mode): the scatter goes
   into a copy with one sentinel row that is sliced off afterwards, so no
-  index ever needs a host-side filter (no device sync).
+  index ever needs a host-side filter (no device sync). ``put_last`` is
+  the set whose indices repeat, resolved as XLA:CPU resolves it.
+* ``launched_event`` / ``event_done``: ``is_ready`` polling, as a CUDA event
+  recorded after a launch and polled with ``query()``.
 * ``topk``: ``jax.lax.top_k`` — ties go to the lower index, which
   ``torch.topk`` does not promise; a stable descending sort does.
 * ``fma``: ``a * b + c`` rounded once, the form XLA:CPU emits for a fused
@@ -52,6 +55,33 @@ def put(arr: torch.Tensor, idx, vals, op: str = "set") -> torch.Tensor:
     else:
         raise ValueError(op)
     return ext[:n].reshape(shape)
+
+
+def put_last(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``arr.at[idx].set(vals, mode="drop")`` for a 1-D ``idx`` whose indices
+    may repeat: per slot the update at the largest position wins, the order
+    XLA:CPU applies them in (``index_put_`` on the card keeps an arbitrary
+    one)."""
+    n = idx.shape[0]
+    pos = put(torch.full((arr.shape[0],), -1, dtype=torch.int64, device=arr.device), idx,
+              torch.arange(n, device=arr.device), "max")
+    hit = (pos >= 0).reshape((-1,) + (1,) * (arr.dim() - 1))
+    return torch.where(hit, vals[pos.clamp(min=0)], arr)
+
+
+def launched_event(device: torch.device):
+    """A CUDA event recorded after the work just enqueued on ``device``; None
+    on the CPU, where that work has already run."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def event_done(ev) -> bool:
+    """Readiness of ``launched_event``'s work (JAX's ``is_ready``)."""
+    return ev is None or ev.query()
 
 
 def topk(x: torch.Tensor, k: int, dim: int = -1):
