@@ -68,12 +68,40 @@ Phases (each failure ends the run with a non-zero exit code):
  13. stereo with loop closing on (the JAX campaign's config-4 proxy): phase
      10's sequence and config; asserts phase 10's end-to-end checks and that
      every Sim3 of every closure keeps scale 1; prints the closures.
-The kernel launch counts of phases 5, 7-13 are each read from zero. With
+ 14. distributed global BA: phase 12's map after its finish() (256 keyframe
+     and 16,384 point slots), every non-gauge keyframe's translation and
+     every point moved by seeded N(0, 0.01), then System.distributed_gba
+     (iters=20) over a world-size-1 NCCL group on a file store (which
+     checks the wiring and measures no scaling). Asserts 41 all_reduce
+     calls, a lower scale-aligned ATE of phase 12's OK frames, the adopted
+     result's poses within 1e-3 and points within 1e-2 of solve_ba(5, 15) on
+     the problem that call solved, two solve_ba runs equal, finite
+     orthonormal keyframe poses; prints the call's time and peak memory;
+ 15. PoseNet: the first 60 frames of phase 5's run with
+     tracker.enable_posenet(). Asserts
+     last_person finite (17, 2) / (17,) / (17,) on the card with scores in
+     [0, 1] on every frame, phase 5's OK and ATE bounds, one frame's
+     heatmaps on the card within 1e-5 of the same module on the CPU (argmax
+     cells equal wherever the top-two margin exceeds it), kernel A once per
+     frame and B once per pass; prints ms/frame beside phase 5's and the
+     head's device time;
+ 16. data-parallel extraction: 8 bench-orbit frames at 640x480 through
+     batched_extract and sharded_extract (world size 1): bit-equal to
+     per-frame extraction, kernel A once per frame;
+ 17. mapping on another device: System(device="cuda", mapping_device="cpu")
+     at 320x240 with 512 features over 40 frames. Asserts OK after
+     initialization, adopted passes and the adopted map on the card;
+ 18. the CLI on the card: ``python -m weiner_slamit_v2_torch.cli --dataset
+     synthetic --frames 40 --eval --posenet`` with --out and --checkpoint in
+     a subprocess: exit 0, both files written, its JSON line with
+     tracked_ok > 20 and an ate_rmse.
+The kernel launch counts of phases 5, 7-17 are each read from zero. With
 phase numbers as arguments (``python3 chip_smoke.py 9 10``) only those of
-phases 7-13 run, after phases 1-6.
+phases 7-18 run, after phases 1-6 (phase 14 brings phase 12 with it).
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
-line of kernel results (launches: phase 5's), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+line of kernel results (launches: summed over the phases that ran in this
+process), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -87,6 +115,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 N_FRAMES = 120
 ATE_BOUND_M = 0.06
@@ -95,6 +124,7 @@ ATE_BOUND_M = 0.06
 WORKLOAD = dict(H=480, W=640, f=500.0, n_features=1024, seed=0, motion_frames=164)
 RELOC = dict(n_frames=200, blank=range(150, 156), ok_by=165)   # phase 7
 RESET_FRAMES = 60                                             # phase 8
+POSENET_FRAMES = 60       # phase 15: the first half of phase 5's run, to save time
 # phases 9-11: the JAX campaign's config 3 and 4 proxies
 # (tools/run_baseline.py:237-309) at the bench geometry, and a small pool
 DEPTH_FRAMES = 150
@@ -142,6 +172,10 @@ V1_SIGNATURES = {
     "windowed_best2_v1_launch": [_P] * 11 + [_F] + [_P] * 3 + [_I] * 3 + [_P],
 }
 _v1 = None
+# phase 5's frame times (phase 15 prints its own beside them) and phase 12's
+# session and sequence (phase 14 runs the distributed BA on its map)
+SLICE_MS: dict = {}
+LOOP_RUN: dict = {}
 
 
 def log(msg: str) -> None:
@@ -535,6 +569,7 @@ def phase_slice(dev, card: str):
         f"adopted mapping passes={n_pass}, ATE={ate:.5f} m, launches={launches}")
     log(f"slice: median {np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} "
         f"ms/frame, max {max(steady):.3f} ms (host clock, synchronized per frame) on {card}")
+    SLICE_MS.update(median=float(np.median(steady)), p90=float(np.percentile(steady, 90)))
     check(all(s == "OK" for s in states[init:]), f"lost after init: {states}")
     check(n_created >= 8, f"only {n_created} keyframes created")
     check(n_pass >= 4, f"only {n_pass} adopted mapping passes")
@@ -1168,6 +1203,7 @@ def phase_loop(dev, card: str) -> dict:
                                                         for g in adopted),
           f"global BAs {watch.gbas}")
     check(bool(torch.isfinite(res.cam_pose).all()), "global BA alone: non-finite poses")
+    LOOP_RUN.update(sys=sys_, seq=seq, states=states)
     return launches
 
 
@@ -1211,6 +1247,284 @@ def phase_stereo_loop(dev, card: str) -> dict:
     return launches
 
 
+def world_one_mesh(dev):
+    """A world-size-1 NCCL group on a file store (created once; phases 14
+    and 16 share it) and the BAMesh over it."""
+    import tempfile
+
+    from weiner_slamit_v2_torch.parallel import multihost
+
+    if not dist.is_initialized():
+        store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        multihost.initialize(dev, init_method=f"file://{store}/store", world_size=1, rank=0)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"backend {dist.get_backend()}, world size {dist.get_world_size()}")
+    return multihost.global_mesh(dev)
+
+
+def phase_gba(dev, card: str) -> dict:
+    """Phase 14: System.distributed_gba at full width on phase 12's map."""
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+    from weiner_slamit_v2_torch.optim.local_ba import solve_ba
+    from weiner_slamit_v2_torch.parallel import sharded_ba
+
+    sys_, seq, states = LOOP_RUN["sys"], LOOP_RUN["seq"], LOOP_RUN["states"]
+    t = sys_.tracker
+    sys_.finish()
+    mesh = world_one_mesh(dev)
+
+    def ok_ate():
+        """Scale-aligned ATE of the trajectory entries of OK frames, each
+        against its own frame (timestamps are i / 30); phase 12 may lose
+        its track after the closure (ROADMAP C), and a LOST entry repeats a
+        stale pose."""
+        ts, Twc = t.trajectory_Twc()
+        idx = np.rint(np.asarray(ts) * 30.0).astype(int)
+        sel = np.asarray([states[i] == "OK" for i in idx])
+        return ate_rmse(Twc[sel], seq.gt_Twc[idx[sel]]), int(sel.sum())
+
+    # tests/test_parallel.py:232-239: every non-gauge keyframe's translation
+    # and every valid point moved by seeded N(0, 0.01)
+    m = t.m
+    gauge = int(torch.nonzero(m.kf_valid)[0])
+    ate_phase12, n_ok = ok_ate()
+    rng = np.random.default_rng(3)
+    nkf = m.kf_pose.shape[0]
+    noise_t = torch.from_numpy(rng.normal(0, 0.01, (nkf, 3)).astype(np.float32)).to(dev)
+    move = ((torch.arange(nkf, device=dev) != gauge) & m.kf_valid)[:, None]
+    pose = m.kf_pose.clone()
+    pose[:, :3, 3] += torch.where(move, noise_t, 0.0)
+    noise_p = torch.from_numpy(rng.normal(0, 0.01, tuple(m.mp_pos.shape)).astype(np.float32)).to(dev)
+    t.m = m.replace(kf_pose=pose, mp_pos=m.mp_pos + noise_p * m.mp_valid[:, None])
+    ate_before, _ = ok_ate()
+
+    # the timed call; its sharded solve is wrapped to time it and to keep the
+    # problem it was given (at world size 1 the whole extraction)
+    solved, real_solve = [], sharded_ba.solve_ba_sharded
+
+    def timed_solve(prob, *args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real_solve(prob, *args, **kwargs)
+        torch.cuda.synchronize()
+        solved.append((prob, (time.perf_counter() - t1) * 1e3))
+        return out
+
+    # the group's first collective sets up NCCL's communicator: done here,
+    # outside the timed call and its all_reduce count
+    dist.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    calls0 = mesh.all_reduces
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sharded_ba.solve_ba_sharded = timed_solve
+    try:
+        t0 = time.perf_counter()
+        res = sys_.distributed_gba(mesh, iters=20)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sharded_ba.solve_ba_sharded = real_solve
+    peak = torch.cuda.max_memory_allocated()
+    calls = mesh.all_reduces - calls0
+    launches = read_launches()
+    ate_after, _ = ok_ate()
+    poses = t.m.kf_pose[t.m.kf_valid]
+    R = poses[:, :3, :3]
+    ortho = float((R @ R.transpose(-1, -2) - torch.eye(3, device=dev)).abs().max())
+
+    # the adopted result against solve_ba on the problem that call solved,
+    # and two solve_ba runs against each other (the run-to-run spread: 0
+    # with util.index_add's ordered sums)
+    (prob, solve_ms), = solved
+    cams, pts = prob.cam_valid, prob.point_valid
+
+    def diff(a, b):
+        return (float((a.cam_pose - b.cam_pose)[cams].abs().max()),
+                float((a.points - b.points)[pts].abs().max()))
+
+    ref = solve_ba(prob, 5, 15)
+    d_pose, d_pts = diff(res, ref)
+    spread = diff(ref, solve_ba(prob, 5, 15))
+    log(f"distributed GBA: {prob.cam_pose.shape[0]} camera slots ({int(cams.sum())} valid), "
+        f"{prob.points.shape[0]} point slots ({int(pts.sum())} valid) x {prob.obs_cam.shape[1]} "
+        f"observations, 20 LM steps over NCCL, world size {mesh.world_size} (no scaling measured): "
+        f"distributed_gba {ms:.3f} ms host time with the card synchronized, of it the sharded solve "
+        f"{solve_ms:.3f} ms; {calls} all_reduce calls; peak device memory {peak} B ({base} B "
+        f"allocated before); scale-aligned ATE of the {n_ok} OK frames {ate_phase12:.5f} m after phase "
+        f"12, {ate_before:.5f} m perturbed, {ate_after:.5f} m after; the adopted result against "
+        f"solve_ba(5, 15) on the problem it solved: poses {d_pose:.3e}, points {d_pts:.3e}; two "
+        f"solve_ba runs part by poses {spread[0]:.3e}, points {spread[1]:.3e}; final cost "
+        f"{float(res.final_cost):.4f}; largest |R R^T - I| {ortho:.2e} on {card}")
+    check(mesh.world_size == 1 and calls == 2 * 20 + 1, f"world size {mesh.world_size}, {calls} calls")
+    check(np.isfinite(ate_after) and ate_after < ate_before, f"ATE {ate_before} -> {ate_after}")
+    check(d_pose <= 1e-3 and d_pts <= 1e-2, f"against solve_ba: poses {d_pose}, points {d_pts}")
+    check(spread == (0.0, 0.0), f"two solve_ba runs part: poses {spread[0]}, points {spread[1]}")
+    check(bool(torch.isfinite(poses).all()) and ortho < 1e-4, f"keyframe poses: |R R^T - I| {ortho}")
+    check(t.m.kf_pose.is_cuda and res.cam_pose.is_cuda, "the adopted map left the card")
+    return launches
+
+
+def phase_posenet(dev, card: str) -> dict:
+    """Phase 15: phase 5's run with the PoseNet head on every frame."""
+    import copy
+
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+    from weiner_slamit_v2_torch.models import posenet
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    cfg, cam, seq, images = workload(POSENET_FRAMES, abortable_ba=False)
+    sys_ = System(cfg, cam)
+    t = sys_.tracker
+    t.enable_posenet()
+    net = t.posenet
+    check(next(net.parameters()).is_cuda, "the head is not on the card")
+    bad = []
+
+    def on_frame(i, out):
+        pos, scores, keep = t.last_person
+        ok = (pos.is_cuda and tuple(pos.shape) == (17, 2) and tuple(scores.shape) == (17,)
+              and tuple(keep.shape) == (17,) and bool(torch.isfinite(pos).all())
+              and bool(((scores >= 0) & (scores <= 1)).all()))
+        if not ok:
+            bad.append(i)
+
+    reset_launches()
+    states, frame_ms = drive(sys_, images, seq, on_frame=on_frame)
+    launches = read_launches()
+    init = next((i for i, s in enumerate(states) if s == "OK"), None)
+    check(init is not None, f"never initialized: {states}")
+    _, Twc = t.trajectory_Twc()
+    ate = ate_rmse(Twc, seq.gt_Twc[-len(Twc):])
+    steady = frame_ms[init + 1:]
+
+    # one frame's heads on the card against the same module on the CPU
+    img = torch.from_numpy(images[POSENET_FRAMES // 2]).to(dev)
+    x = (posenet.resize_to_input(img)[None] / 127.5 - 1.0)
+    with torch.no_grad():
+        hm_dev = net(x)[0][0].reshape(-1, 17)
+        hm_cpu = copy.deepcopy(net).cpu()(x.cpu())[0][0].reshape(-1, 17)
+    tol = 1e-5
+    err = float((hm_dev.cpu() - hm_cpu).abs().max())
+    top2 = hm_cpu.topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > tol
+    cells_equal = bool((hm_dev.argmax(0).cpu() == hm_cpu.argmax(0))[clear].all())
+    head = lambda: posenet.person_keypoints_for_frame(net, img)  # noqa: E731
+    try:
+        head_ms, how = device_ms(head), "graph replay"
+    except RuntimeError as e:   # not capturable: timed by events around eager calls
+        log(f"posenet: the head is not capturable ({str(e).splitlines()[0]})")
+        head_ms, how = eager_ms(head), "events"
+    log(f"posenet: init at frame {init}, {sum(s == 'OK' for s in states[init:])} OK of "
+        f"{POSENET_FRAMES - init}, ATE {ate:.5f} m, launches {launches}, mapping passes "
+        f"{sys_.mapping_passes}; heatmaps card vs CPU max |diff| {err:.3e} (tolerance {tol}), argmax "
+        f"cells equal where the top-two margin > {tol}: {cells_equal} ({int(clear.sum())} of 17 "
+        f"keypoints); person_keypoints_for_frame device time {head_ms:.5f} ms per frame ({how})")
+    log(f"posenet: median {np.median(steady):.3f} ms/frame, p90 {np.percentile(steady, 90):.3f} "
+        f"ms/frame with the head (phase 5 without it: median {SLICE_MS.get('median', float('nan')):.3f}, "
+        f"p90 {SLICE_MS.get('p90', float('nan')):.3f}) on {card}")
+    check(not bad, f"last_person not finite (17, 2)/(17,)/(17,) on the card on frames {bad}")
+    check(all(s == "OK" for s in states[init:]), f"lost after init: {states}")
+    check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
+    check(err <= tol and cells_equal, f"heatmaps card vs CPU {err}, cells equal {cells_equal}")
+    check(launches["fast_score_nms"] == POSENET_FRAMES, f"{launches}, want A once per frame")
+    check(launches["windowed_best2"] >= sys_.mapping_passes > 0, f"{launches}, passes {sys_.mapping_passes}")
+    return launches
+
+
+def phase_extract(dev, card: str) -> dict:
+    """Phase 16: batched and sharded extraction of 8 full-width frames."""
+    from weiner_slamit_v2_torch.frontend.extractor import OrbExtractor
+    from weiner_slamit_v2_torch.parallel.data_parallel import batched_extract, sharded_extract
+
+    cfg, _, _, images = workload(8)
+    ex = OrbExtractor(cfg.orb, (WORKLOAD["H"], WORKLOAD["W"]))
+    frames = torch.from_numpy(np.stack(images)).to(dev)
+    mesh = world_one_mesh(dev)
+    per = [ex(f) for f in frames]
+    fields = list(vars(per[0]))
+    out = {}
+    reset_launches()
+    for name, fn in (("batched", lambda: batched_extract(ex, frames)),
+                     ("sharded", lambda: sharded_extract(ex, frames, mesh))):
+        before = read_launches()["fast_score_nms"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = read_launches()["fast_score_nms"] - before
+        same = all(torch.equal(getattr(got, k), torch.stack([getattr(p, k) for p in per])) for k in fields)
+        out[name] = (same, n, ms)
+        log(f"extract {name}: 8 frames {WORKLOAD['W']}x{WORKLOAD['H']}, equal to per-frame extraction bit for bit: {same}; "
+            f"kernel A launches {n}; {ms:.3f} ms host time synchronized (world size {mesh.world_size}) "
+            f"on {card}")
+    check(all(same and n == 8 for same, n, _ in out.values()), f"batched/sharded extraction {out}")
+    return read_launches()
+
+
+def phase_mapping_device(dev, card: str) -> dict:
+    """Phase 17: tracking on the card, the mapping pass on the CPU."""
+    from weiner_slamit_v2_torch.config import (CameraConfig, MapCapacityConfig, OrbConfig,
+                                               SlamConfig)
+    from weiner_slamit_v2_torch.geometry.camera import Camera
+    from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    H, W, f, n = 240, 320, 250.0, 40
+    cfg = SlamConfig(orb=OrbConfig(n_features=512),
+                     camera=CameraConfig(fx=f, fy=f, cx=W / 2, cy=H / 2, k1=0, k2=0, p1=0, p2=0,
+                                         k3=0, width=W, height=H),
+                     capacity=MapCapacityConfig(max_keyframes=64, max_map_points=4096))
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    seq = make_synthetic_sequence(n_frames=n, h=H, w=W, K=K, seed=0, motion="orbit",
+                                  motion_frames=WORKLOAD["motion_frames"])
+    images = [uint8(fr.image) for fr in seq.frames]
+    sys_ = System(cfg, Camera.create(f, f, W / 2, H / 2, width=W, height=H), device="cuda",
+                  mapping_device="cpu")
+    check(sys_.mapping_device.type == "cpu" and sys_.tracker.m.kf_pose.is_cuda, "devices")
+    reset_launches()
+    states, frame_ms = drive(sys_, images, seq)
+    launches = read_launches()
+    init = next((i for i, s in enumerate(states) if s == "OK"), None)
+    check(init is not None, f"never initialized: {states}")
+    m = sys_.tracker.m
+    log(f"mapping device: tracking on {sys_.device}, mapping on {sys_.mapping_device}; init at frame "
+        f"{init}, {sum(s == 'OK' for s in states[init:])} OK of {n - init}, staged passes "
+        f"{sys_.staged_passes}, adopted {sys_.mapping_passes}, map on {m.kf_pose.device}, launches "
+        f"{launches}; median {np.median(frame_ms[init + 1:]):.3f} ms/frame, max {max(frame_ms):.3f} "
+        f"ms (the mapping pass on this machine's CPU: not a performance figure) on {card}")
+    check(all(s == "OK" for s in states[init:]), f"lost after init: {states}")
+    check(sys_.mapping_passes > 0, "no mapping pass adopted")
+    check(all(getattr(m, k).is_cuda for k in vars(m)), "the adopted map is not on the card")
+    check(launches["fast_score_nms"] == n, f"{launches}, want A once per frame")
+    return launches
+
+
+def phase_cli(dev, card: str) -> dict:
+    """Phase 18: the CLI on the card, in a subprocess."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        traj, ckpt = os.path.join(d, "traj.txt"), os.path.join(d, "map.npz")
+        cmd = [sys.executable, "-m", "weiner_slamit_v2_torch.cli", "--dataset", "synthetic",
+               "--frames", "40", "--eval", "--posenet", "--out", traj, "--checkpoint", ckpt]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-3000:]}")
+        summary = json.loads(r.stdout.strip().splitlines()[-1])
+        log(f"cli: {' '.join(cmd[1:5])} ... exit 0 in {wall:.1f} s (process start and kernel "
+            f"loading included); summary {json.dumps(summary)}; trajectory {os.path.getsize(traj)} B, "
+            f"checkpoint {os.path.getsize(ckpt)} B on {card}")
+        check(summary.get("device", "").startswith("cuda"), f"CLI ran on {summary.get('device')}")
+        check(summary["tracked_ok"] > 20 and "ate_rmse" in summary, str(summary))
+        check(os.path.getsize(traj) > 0 and os.path.getsize(ckpt) > 0, "outputs empty")
+    return {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1238,26 +1552,33 @@ def main() -> int:
                   .frames[1].image)
     kern_a = phase_kernel_a(frame, dev)
     phase_kernel_b(dev)
-    want = {int(a) for a in sys.argv[1:]} or set(range(7, 14))
+    want = {int(a) for a in sys.argv[1:]} or set(range(7, 19))
+    if 14 in want:
+        want.add(12)   # phase 14 runs on phase 12's map
     launches, captured = phase_slice(dev, card)
     kern_b = phase_kernel_b_fuse(captured, dev)
     paths = [(7, "reloc", phase_reloc), (8, "reset", lambda d, c: phase_reset(d)),
              (9, "rgbd", phase_rgbd), (10, "stereo", phase_stereo), (11, "compact", phase_compact),
-             (12, "loop", phase_loop), (13, "stereo_loop", phase_stereo_loop)]
+             (12, "loop", phase_loop), (13, "stereo_loop", phase_stereo_loop),
+             (14, "distributed_gba", phase_gba), (15, "posenet", phase_posenet),
+             (16, "extract", phase_extract), (17, "mapping_device", phase_mapping_device),
+             (18, "cli", phase_cli)]
     by_path = {"slice": launches}
     for num, name, phase in paths:
         if num in want:
             t0 = time.perf_counter()
             by_path[name] = phase(dev, card)
             log(f"phase {num} ({name}): {time.perf_counter() - t0:.1f} s")
-    log(f"kernel launches by path (each read from zero): {by_path}")
+    log(f"kernel launches by path (each read from zero; phase 18's are in its own process): {by_path}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
     kernels = [kern_a, kern_b]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(p.get(k["name"], 0) for p in by_path.values())
         log(f"kernel {k['name']} on {card}: v1 design {k['v1_ms']:.5f} ms, this design "
             f"{k['ms']:.5f} ms, plain {k['plain_ms']:.5f} ms, bound {k['bound_ms']:.5f} ms "
             f"({k['bound_by']}), share of the bound {k['bound_ms'] / k['ms']:.4f}, "
-            f"launches on the slice {k['launches']}")
+            f"launches over the phases {k['launches']} (on the slice {launches[k['name']]})")
     torch.cuda.synchronize()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

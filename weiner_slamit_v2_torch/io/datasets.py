@@ -1,13 +1,21 @@
-"""Deterministic synthetic sequences (port of the synthetic part of
-weiner_slamit_v2_tpu/io/datasets.py: ``make_synthetic_sequence``, the
-single-plane ``SyntheticWorld``, the occluding ``MultiPlaneWorld`` with its
-depth maps and rectified right views, ``_perlin_texture``,
-``_bilinear_sample``). numpy only, with the JAX package's order of random
-draws, so the images, depths and right views are bit-equal to its own; the
-Rodrigues rotation is evaluated in float32 as the JAX package evaluates it."""
+"""Dataset loaders and deterministic synthetic sequences (port of
+weiner_slamit_v2_tpu/io/datasets.py).
+
+The real-dataset loaders (TUM RGB-D, KITTI odometry and its calib.txt,
+EuRoC MAV) read the same files, associations and timestamps as the JAX
+package's; frames decode on the host (native/ C++ for PNG/PGM, PIL for the
+rest), off the device path.
+
+The synthetic part (``make_synthetic_sequence``, the single-plane
+``SyntheticWorld``, the occluding ``MultiPlaneWorld`` with its depth maps and
+rectified right views, ``_perlin_texture``, ``_bilinear_sample``) is numpy
+only, with the JAX package's order of random draws, so the images, depths
+and right views are bit-equal to its own; the Rodrigues rotation is
+evaluated in float32 as the JAX package evaluates it."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -32,6 +40,177 @@ class Sequence:
 
     def __iter__(self) -> Iterator[FrameData]:
         return iter(self.frames)
+
+
+def _load_gray(path: str) -> np.ndarray:
+    """(H, W) float32 gray frame: the native PNG/PGM decoder, PIL for other
+    formats (JPEG etc.)."""
+    from ..native import load_image_gray_native
+
+    img = load_image_gray_native(path)
+    if img is not None:
+        return img
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("L"), dtype=np.float32)
+
+
+def load_tum_rgbd(root: str, max_frames: int | None = None, with_depth: bool = True,
+                  depth_map_factor: float = 5000.0) -> Sequence:
+    """A TUM RGB-D sequence directory (rgb.txt / depth.txt /
+    groundtruth.txt); depth_map_factor: 16-bit depth units per meter
+    (CameraConfig.depth_map_factor; 5000 for TUM)."""
+
+    def read_list(name):
+        entries = []
+        p = os.path.join(root, name)
+        if not os.path.exists(p):
+            return entries
+        with open(p) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                parts = line.split()
+                entries.append((float(parts[0]), parts[1] if len(parts) > 1 else None))
+        return entries
+
+    rgb = read_list("rgb.txt")
+    depth = read_list("depth.txt") if with_depth else []
+    if max_frames:
+        rgb = rgb[:max_frames]
+    # depth to rgb by the nearest timestamp, within 20 ms
+    dts = np.array([t for t, _ in depth]) if depth else None
+    frames = []
+    for ts, rel in rgb:
+        d = None
+        if dts is not None and len(dts):
+            j = int(np.argmin(np.abs(dts - ts)))
+            if abs(dts[j] - ts) < 0.02:
+                d = _load_gray(os.path.join(root, depth[j][1])) / depth_map_factor
+        frames.append(FrameData(timestamp=ts, image=_load_gray(os.path.join(root, rel)), depth=d))
+
+    gt = None
+    gt_path = os.path.join(root, "groundtruth.txt")
+    if os.path.exists(gt_path):
+        from .trajectory import load_tum
+
+        gts, gt_Twc = load_tum(gt_path)
+        # the nearest ground-truth timestamp per frame
+        gt = gt_Twc[[int(np.argmin(np.abs(gts - f.timestamp))) for f in frames]]
+    return Sequence(frames=frames, gt_Twc=gt)
+
+
+def load_kitti_odometry(root: str, sequence: str = "00", max_frames: int | None = None,
+                        stereo: bool = True) -> Sequence:
+    """A KITTI odometry sequence (image_0 / image_1 grayscale pairs,
+    times.txt, poses/<sequence>.txt)."""
+    seq_dir = os.path.join(root, "sequences", sequence)
+    left_dir = os.path.join(seq_dir, "image_0")
+    right_dir = os.path.join(seq_dir, "image_1")
+    names = sorted(os.listdir(left_dir))
+    if max_frames:
+        names = names[:max_frames]
+    times_path = os.path.join(seq_dir, "times.txt")
+    if os.path.exists(times_path):
+        with open(times_path) as f:
+            times = [float(line) for line in f]
+    else:
+        times = list(np.arange(len(names)) * 0.1)
+    frames = []
+    for i, name in enumerate(names):
+        right = None
+        if stereo and os.path.isdir(right_dir):
+            right = _load_gray(os.path.join(right_dir, name))
+        frames.append(FrameData(timestamp=times[i], image=_load_gray(os.path.join(left_dir, name)),
+                                image_right=right))
+    gt = None
+    poses_path = os.path.join(root, "poses", f"{sequence}.txt")
+    if os.path.exists(poses_path):
+        rows = np.loadtxt(poses_path).reshape(-1, 3, 4)
+        gt = np.tile(np.eye(4), (len(rows), 1, 1))
+        gt[:, :3, :4] = rows
+        gt = gt[: len(frames)]
+    return Sequence(frames=frames, gt_Twc=gt)
+
+
+def load_kitti_calib(root: str, sequence: str = "00") -> dict | None:
+    """CameraConfig keyword arguments from the sequence's own calib.txt
+    ("P0: fx 0 cx 0  0 fy cy 0  0 0 1 0" per projection matrix; baseline x
+    fx = -P1[0, 3]; the image size from the first left frame), or None
+    without the file (KITTI's calibration differs per recording date)."""
+    path = os.path.join(root, "sequences", sequence, "calib.txt")
+    if not os.path.exists(path):
+        return None
+    P = {}
+    with open(path) as f:
+        for line in f:
+            if ":" not in line:
+                continue
+            key, vals = line.split(":", 1)
+            P[key.strip()] = np.array(vals.split(), dtype=np.float64).reshape(3, 4)
+    if "P0" not in P:
+        return None
+    p0 = P["P0"]
+    out = dict(fx=float(p0[0, 0]), fy=float(p0[1, 1]), cx=float(p0[0, 2]), cy=float(p0[1, 2]),
+               k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0, fps=10.0, depth_threshold=135.0)
+    if "P1" in P:
+        out["baseline_times_fx"] = float(-P["P1"][0, 3])
+    left_dir = os.path.join(root, "sequences", sequence, "image_0")
+    if os.path.isdir(left_dir):
+        names = sorted(os.listdir(left_dir))
+        if names:
+            img = _load_gray(os.path.join(left_dir, names[0]))
+            out["height"], out["width"] = int(img.shape[0]), int(img.shape[1])
+    return out
+
+
+def _quat_wxyz_to_R(w, x, y, z) -> np.ndarray:
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def load_euroc(root: str, max_frames: int | None = None) -> Sequence:
+    """A EuRoC MAV sequence (mav0/cam0/data.csv + data/, and
+    mav0/state_groundtruth_estimate0/data.csv rows [t_ns, p_xyz, q_wxyz,
+    ...], the nearest one per frame)."""
+    cam_dir = os.path.join(root, "mav0", "cam0")
+    entries = []
+    with open(os.path.join(cam_dir, "data.csv")) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ts_ns, name = line.split(",")[:2]
+            entries.append((int(ts_ns) * 1e-9, name.strip()))
+    if max_frames:
+        entries = entries[:max_frames]
+    frames = [FrameData(timestamp=ts, image=_load_gray(os.path.join(cam_dir, "data", name)))
+              for ts, name in entries]
+    gt = None
+    gt_csv = os.path.join(root, "mav0", "state_groundtruth_estimate0", "data.csv")
+    if os.path.exists(gt_csv) and frames:
+        ts_list, pos, quat = [], [], []
+        with open(gt_csv) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                parts = line.split(",")
+                ts_list.append(int(parts[0]) * 1e-9)
+                pos.append([float(x) for x in parts[1:4]])
+                quat.append([float(x) for x in parts[4:8]])
+        if ts_list:
+            gts, pos, quat = np.asarray(ts_list), np.asarray(pos), np.asarray(quat)
+            gt = np.tile(np.eye(4), (len(frames), 1, 1))
+            for i, fr in enumerate(frames):
+                j = int(np.argmin(np.abs(gts - fr.timestamp)))
+                gt[i, :3, :3] = _quat_wxyz_to_R(*quat[j])
+                gt[i, :3, 3] = pos[j]
+    return Sequence(frames=frames, gt_Twc=gt)
 
 
 def _perlin_texture(h: int, w: int, rng: np.random.Generator, octaves: int = 5) -> np.ndarray:

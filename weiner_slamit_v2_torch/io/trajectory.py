@@ -1,5 +1,5 @@
-"""Trajectory export in TUM and KITTI formats (port of
-weiner_slamit_v2_tpu/io/trajectory.py::save_tum / save_kitti;
+"""Trajectory files in TUM and KITTI formats (port of
+weiner_slamit_v2_tpu/io/trajectory.py: save_tum / save_kitti / load_tum;
 System::SaveTrajectoryTUM, src/System.cc:401-454: "timestamp tx ty tz qx qy
 qz qw"; SaveTrajectoryKITTI, src/System.cc:493-541: a 3x4 row-major pose per
 line)."""
@@ -34,3 +34,23 @@ def save_kitti(path: str | os.PathLike, Twc: np.ndarray) -> None:
     with open(path, "w") as f:
         for T in Twc:
             f.write(" ".join(f"{v:.9e}" for v in T[:3, :4].reshape(-1)) + "\n")
+
+
+def load_tum(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    """Read a TUM trajectory -> (timestamps (N,), Twc (N, 4, 4) float64; the
+    rotation from the float32 quaternion, as the JAX package computes it)."""
+    data = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.split()]
+            if len(vals) >= 8:
+                data.append(vals[:8])
+    arr = np.asarray(data, dtype=np.float64)
+    R = se3.rot_from_quat(torch.from_numpy(arr[:, 4:8].astype(np.float32))).numpy()
+    Twc = np.tile(np.eye(4), (len(arr), 1, 1))
+    Twc[:, :3, :3] = R
+    Twc[:, :3, 3] = arr[:, 1:4]
+    return arr[:, 0], Twc

@@ -10,8 +10,8 @@ runs the monocular computation, unchanged.
 
 The observation layout is point-major (P, O). The JAX package gathers poses
 and reduces camera blocks with one-hot matmuls (a TPU workaround); here they
-are direct gathers and index_add scatters. The reduced camera system is
-solved by Cholesky.
+are direct gathers and ``util.index_add`` scatters (the same sums on every
+run). The reduced camera system is solved by Cholesky.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..geometry import se3
+from ..util import index_add
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815  # 3-dof 95% gate (Optimizer.cc:295)
@@ -137,11 +138,15 @@ def build_normal_equations(cam_pose, points, K, obs_cam, obs_uv, w, obs_ur=None,
     Hcc_o = _finite(Hcc_o).reshape(P * O, 36)
     bc_o = _finite(bc_o).reshape(P * O, 6)
     cam = obs_cam.clamp(min=0).long().reshape(-1)
-    Hcc = torch.zeros((C, 36), device=w.device).index_add_(0, cam, Hcc_o).reshape(C, 6, 6)
-    bc = -torch.zeros((C, 6), device=w.device).index_add_(0, cam, bc_o)
-    G = _finite(G).reshape(P * O, 18)
     pidx = torch.arange(P, device=w.device).repeat_interleave(O)
-    U5 = torch.zeros((P * C, 18), device=w.device).index_add_(0, pidx * C + cam, G)
+    # an empty observation slot (camera -1, all zeros) goes to a spare row of
+    # its own point: on the card one camera row with all of them would be
+    # summed one value after another (util.index_add)
+    row = torch.where(obs_cam.reshape(-1) >= 0, cam, C + pidx)
+    Hcc = index_add(torch.zeros((C + P, 36), device=w.device), row, Hcc_o)[:C].reshape(C, 6, 6)
+    bc = -index_add(torch.zeros((C + P, 6), device=w.device), row, bc_o)[:C]
+    G = _finite(G).reshape(P * O, 18)
+    U5 = index_add(torch.zeros((P * C, 18), device=w.device), pidx * C + cam, G)
     U = U5.reshape(P, C, 6, 3).permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     return Hcc, bc, Hpp, bp, U
 
@@ -163,9 +168,12 @@ def _inv3x3(A):
     return adj / det[..., None, None]
 
 
-def schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam):
+def schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam, reduce=None):
     """Damped normal equations solved by marginalizing points.
-    Returns (dc (C,6), dp (P,3))."""
+    ``reduce(S, b_red) -> (S, b_red)``: the sum of the reduced camera system
+    over the ranks that each hold a block of the points (the distributed BA,
+    parallel/sharded_ba.py; JAX's psum), applied after each rank added its
+    own damped camera blocks. Returns (dc (C,6), dp (P,3))."""
     C, P = Hcc.shape[0], Hpp.shape[0]
     eye3 = torch.eye(3, device=Hcc.device)
     eye6 = torch.eye(6, device=Hcc.device)
@@ -183,6 +191,8 @@ def schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam):
     ar = torch.arange(C, device=Hcc.device)
     S[ar, ar] += Hcc_d
     b_red = b_red.reshape(C, 6)
+    if reduce is not None:
+        S, b_red = reduce(S, b_red)
     free = cam_free
     S = torch.where((free[:, None] & free[None, :])[:, :, None, None], S, 0.0)
     S[ar, ar] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
@@ -213,7 +223,11 @@ def _base_obs(prob: BAProblem):
             & prob.cam_valid[prob.obs_cam.clamp(min=0).long()])
 
 
-def _lm_phase(prob, cam_pose, points, active_obs, robust: bool, n_iters: int, lam):
+def _lm_phase(prob, cam_pose, points, active_obs, robust: bool, n_iters: int, lam, reduce=None):
+    """``n_iters`` LM steps. With ``reduce`` (a sum over ranks, see
+    schur_solve) the problem holds one rank's block of points: the reduced
+    system, both costs and the count of non-finite point steps are summed,
+    so every rank takes the same accept decision."""
     cam_free = prob.cam_valid & ~prob.cam_fixed
     point_free = prob.point_valid & (_base_obs(prob).sum(1) > 0)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=points.device)
@@ -224,11 +238,16 @@ def _lm_phase(prob, cam_pose, points, active_obs, robust: bool, n_iters: int, la
         Hcc, bc, Hpp, bp, U = build_normal_equations(
             cam_pose, points, prob.K, prob.obs_cam, prob.obs_uv, w, prob.obs_ur,
             prob.obs_has_ur, prob.bf)
-        dc, dp = schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam)
+        dc, dp = schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam, reduce)
         new_pose = se3.retract(cam_pose, dc)
         new_pts = points + dp
         c1, _, _ = _total_cost(new_pose, new_pts, prob, active_obs, robust)
-        accept = (c1 < c0) & torch.isfinite(c1) & torch.isfinite(dc).all() & torch.isfinite(dp).all()
+        if reduce is None:
+            dp_finite = torch.isfinite(dp).all()
+        else:
+            c0, c1, n_bad = reduce(c0, c1, (~torch.isfinite(dp)).sum())
+            dp_finite = n_bad == 0
+        accept = (c1 < c0) & torch.isfinite(c1) & torch.isfinite(dc).all() & dp_finite
         cam_pose = torch.where(accept, new_pose, cam_pose)
         points = torch.where(accept, new_pts, points)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 8.0), 1e-5, 1e3)

@@ -8,7 +8,7 @@ batch; its two (7, 7) Jacobians come from forward-mode autodiff, one
 on its own edge's 7-vectors only), the 14 directions batched by ``vmap``.
 The normal equations are solved dense (Cholesky of the (7K, 7K) system) or by
 block-Jacobi preconditioned CG on the block-sparse system (two
-``index_add_`` scatters per product); ``solver="auto"`` picks dense up to
+``util.index_add`` scatters per product); ``solver="auto"`` picks dense up to
 320 keyframe slots. The LM accept / reject and the damping stay on the
 device: no host read per iteration.
 """
@@ -19,6 +19,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..geometry import sim3
+from ..util import index_add
 
 
 def _solve_dense(D, Hij, ei, ej, off_ok, b):
@@ -28,8 +29,8 @@ def _solve_dense(D, Hij, ei, ej, off_ok, b):
     H = torch.zeros((K * K, 7, 7), dtype=D.dtype, device=D.device)
     ar = torch.arange(K, device=D.device)
     H[ar * K + ar] = D
-    H.index_add_(0, ei * K + ej, Ho)
-    H.index_add_(0, ej * K + ei, Ho.transpose(-1, -2))
+    index_add(H, ei * K + ej, Ho)
+    index_add(H, ej * K + ei, Ho.transpose(-1, -2))
     Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
     Hd = Hd + 1e-8 * torch.eye(K * 7, dtype=D.dtype, device=D.device)
     L, _ = torch.linalg.cholesky_ex(Hd)
@@ -44,8 +45,8 @@ def _solve_pcg(D, Hij, ei, ej, off_ok, b, cg_iters: int):
 
     def matvec(x):
         y = (D @ x[..., None])[..., 0]
-        y = y.index_add(0, ei, (Ho @ x[ej][..., None])[..., 0])
-        return y.index_add(0, ej, (HoT @ x[ei][..., None])[..., 0])
+        y = index_add(y, ei, (Ho @ x[ej][..., None])[..., 0])
+        return index_add(y, ej, (HoT @ x[ei][..., None])[..., 0])
 
     Minv = torch.linalg.inv_ex(D + 1e-8 * torch.eye(7, dtype=D.dtype, device=D.device))[0]
     precond = lambda r: (Minv @ r[..., None])[..., 0]  # noqa: E731
@@ -118,8 +119,8 @@ def optimize_pose_graph(S_init, kf_valid, fixed, edge_i, edge_j, edge_S_ji, edge
         rw = (r * w[:, None])[..., None]
         bi = -(Ji.transpose(-1, -2) @ rw)[..., 0]
         bj = -(Jj.transpose(-1, -2) @ rw)[..., 0]
-        D = torch.zeros((K, 7, 7), dtype=dt, device=dev).index_add_(0, ei, Hii).index_add_(0, ej, Hjj)
-        b = torch.zeros((K, 7), dtype=dt, device=dev).index_add_(0, ei, bi).index_add_(0, ej, bj)
+        D = index_add(index_add(torch.zeros((K, 7, 7), dtype=dt, device=dev), ei, Hii), ej, Hjj)
+        b = index_add(index_add(torch.zeros((K, 7), dtype=dt, device=dev), ei, bi), ej, bj)
 
         # LM damping on the diagonal blocks
         damp = lam * torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-6)

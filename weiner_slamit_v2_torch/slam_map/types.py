@@ -76,6 +76,10 @@ class SlamMap:
     def replace(self, **kw) -> "SlamMap":
         return dataclasses.replace(self, **kw)
 
+    def to(self, device) -> "SlamMap":
+        """Every field on ``device`` (fields already there are shared)."""
+        return SlamMap(**{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+
 
 def empty_map(cap: MapCapacityConfig, n_features: int, device=None) -> SlamMap:
     K, M, O, N = cap.max_keyframes, cap.max_map_points, cap.max_obs_per_point, n_features

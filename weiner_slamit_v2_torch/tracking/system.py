@@ -21,6 +21,12 @@ With ``enable_loop_closing=True`` each adopted pass is followed by the loop
 closer (tracking/loop_closing.py), whose global BA runs in chunks between
 frames and is adopted only while no mapping pass is in flight.
 
+``mapping_device`` runs the mapping pass on another device: the snapshot
+moves there per keyframe, the stages' readiness events are recorded there,
+and the adopted map comes back to the session's device.
+``distributed_gba`` runs the points-sharded global BA (parallel/) and adopts
+it into the live session.
+
 Before each frame, ``_pre_frame`` adopts a finished pass (and a finished
 global BA) and, once the keyframe pool is nearly full and at least 2 slots
 can be reclaimed, compacts the map (keyframe slot ids are never reused).
@@ -28,8 +34,7 @@ can be reclaimed, compacts the map (keyframe slot ids are never reused).
 layout.
 
 Not ported: the fused N-frame scan (``frames_per_sync > 1``; the tracker
-raises ``NotImplementedError`` naming ROADMAP A.7). Distributed BA (A.13) has
-no entry point yet.
+raises ``NotImplementedError`` naming ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ from ..config import SlamConfig
 from ..geometry import se3
 from ..geometry.camera import Camera
 from ..io import trajectory as traj_io
+from ..optim.ba_extract import extract_global_ba
 from ..optim.local_ba import BA_LAMBDA_INIT, ba_finalize, ba_phase1, ba_phase2_chunk
 from ..slam_map import checkpoint
 from ..slam_map.compaction import compact_map
+from ..slam_map.point_stats import refresh_point_stats
 from ..util import event_done, launched_event, resolve_device
 from .local_mapping import mapping_finish, mapping_pre, mapping_step
-from .loop_closing import LoopCloser
+from .loop_closing import LoopCloser, _adopt_gba
 from .tracker import Tracker, TrackerOutput
 
 
@@ -60,12 +67,16 @@ def _frame(image):
 class System:
     def __init__(self, cfg: Optional[SlamConfig] = None, camera: Optional[Camera] = None,
                  device=None, enable_mapping: bool = True, enable_loop_closing: bool = False,
-                 mapping_neighbors: int | None = None):
+                 mapping_neighbors: int | None = None, mapping_device=None):
+        """mapping_device: run the mapping pass there (pipeline parallelism:
+        the tracking device keeps the per-frame path); None = the session's
+        device."""
         self.cfg = cfg or SlamConfig()
         cc = self.cfg.camera
         self.camera = camera or Camera.create(cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2,
                                               cc.p1, cc.p2, cc.k3, cc.width, cc.height)
         self.device = resolve_device(device)
+        self.mapping_device = self.device if mapping_device is None else torch.device(mapping_device)
         self.tracker = Tracker(self.cfg, self.camera, self.device)
         self.loop_closer = LoopCloser(self.cfg, self.tracker) if enable_loop_closing else None
         self.enable_mapping = enable_mapping
@@ -108,20 +119,23 @@ class System:
         if self.localization_only:
             return
         t = self.tracker
-        args = (t.m, kf_id, t.K, t.scale_factors, t.sigma2, t.inv_sigma2, self.cfg)
+        md = self.mapping_device
+        args = (t.m.to(md), kf_id, t.K.to(md), t.scale_factors.to(md), t.sigma2.to(md),
+                t.inv_sigma2.to(md), self.cfg)
         if self.cfg.tracking.abortable_ba:
             m, prob, cam_ids, point_ids = mapping_pre(*args, n_neighbors=self.mapping_neighbors)
             self._stage = dict(name="pre", kf=kf_id, m=m, prob=prob, cam_ids=cam_ids,
                                point_ids=point_ids, ba_state=None,
-                               chunks_left=self._n_ba_chunks, event=launched_event(self.device))
+                               chunks_left=self._n_ba_chunks, event=launched_event(md))
             self._pending_map = self._pending_event = None
         else:
             self._pending_map = mapping_step(*args, n_neighbors=self.mapping_neighbors)
-            self._pending_event = launched_event(self.device)
+            self._pending_event = launched_event(md)
             self._stage = None
         self._pending_kf = kf_id
         # tracking keeps counting visible/found while the pass waits; adoption
-        # re-applies those increments (they feed the found-ratio culling)
+        # re-applies those increments (they feed the found-ratio culling); the
+        # snapshot stays on the session's device, where they are applied
         self._pending_counters = (t.m.mp_visible, t.m.mp_found)
         self._mapping_enqueued_frame = t.frame_id
 
@@ -129,7 +143,7 @@ class System:
         s = self._stage
         self._pending_map = mapping_finish(s["m"], s["kf"], res, s["prob"], s["cam_ids"],
                                            s["point_ids"], self.cfg)
-        self._pending_event = launched_event(self.device)
+        self._pending_event = launched_event(self.mapping_device)
         self._stage = None
         self.staged_passes += 1
 
@@ -152,7 +166,7 @@ class System:
                 return True
             s["ba_state"] = ba_phase1(s["prob"], n_iters=o.local_ba_iters1)
             s["name"] = "ba"
-            s["event"] = launched_event(self.device)
+            s["event"] = launched_event(self.mapping_device)
             self.ba_chunks_issued += 1
             return False
         cam_pose, points, lam, inlier = s["ba_state"]
@@ -162,7 +176,7 @@ class System:
             s["ba_state"] = (*ba_phase2_chunk(s["prob"], cam_pose, points, lam, inlier,
                                               n_iters=t.ba_chunk_iters), inlier)
             s["chunks_left"] -= 1
-            s["event"] = launched_event(self.device)
+            s["event"] = launched_event(self.mapping_device)
             self.ba_chunks_issued += 1
             return False
         # every chunk ran, or an abort: finalize the best state so far
@@ -204,7 +218,7 @@ class System:
         if not (force or chained or event_done(self._pending_event)):
             return False
         t = self.tracker
-        m, kf_id = self._pending_map, self._pending_kf
+        m, kf_id = self._pending_map.to(self.device), self._pending_kf
         snap_v, snap_f = self._pending_counters
         self._pending_map = self._pending_event = self._pending_counters = None
         self._pending_kf = -1
@@ -325,6 +339,33 @@ class System:
         rectified pair; uint8 frames pass as uint8."""
         self._pre_frame()
         return self.tracker.process_frame(_frame(left), timestamp, image_right=_frame(right))
+
+    def distributed_gba(self, mesh=None, iters: int | None = None):
+        """The full-map global BA sharded over a mesh's ranks and adopted into
+        the live session (the multi-device form of LoopClosing::
+        RunGlobalBundleAdjustment, src/LoopClosing.cc:658-758; JAX
+        tracking/system.py:544-591). Drains the pipeline first; mesh=None:
+        ``make_ba_mesh`` on the session's device (a world-size-1 group when
+        none is initialized). Returns the BAResult (every rank's)."""
+        from ..parallel.sharded_ba import make_ba_mesh, shard_problem, solve_ba_sharded
+
+        self.finish()
+        t = self.tracker
+        mesh = mesh if mesh is not None else make_ba_mesh(self.device)
+        n_iters = iters if iters is not None else self.cfg.optim.global_ba_iters
+        gauge = int(torch.nonzero(t.m.kf_valid)[0])
+        prob, cam_ids, point_ids = extract_global_ba(t.m, t.K, t.inv_sigma2, gauge_kf=gauge,
+                                                     bf=self.cfg.camera.baseline_times_fx)
+        res = solve_ba_sharded(shard_problem(prob, mesh), mesh, iters1=5,
+                               iters2=max(n_iters - 5, 1))
+        old_ref_pose = t.m.kf_pose[t.ref_kf]
+        t.m = _adopt_gba(t.m, res.cam_pose.to(self.device), cam_ids, res.points.to(self.device),
+                         point_ids, t.n_kf_host)
+        t.m = refresh_point_stats(t.m, t.scale_factors)
+        if t.last_Tcw is not None:
+            t.last_Tcw = t.last_Tcw @ se3.inv(old_ref_pose) @ t.m.kf_pose[t.ref_kf]
+        t.velocity = None
+        return res
 
     def save_map(self, path: str) -> None:
         """Checkpoint the map (after draining the mapping pipeline)."""

@@ -21,6 +21,9 @@ vocabulary seeding, PnP RANSAC) come through the hooks ``init_draws``,
 ``vocab_draws`` and ``pnp_draws``, seeded from ``cfg.seed`` as the JAX
 package seeds its keys; the tests feed the JAX package's own draws.
 
+``enable_posenet()`` runs the PoseNet person-keypoint head (models/) on
+every frame before extraction; ``last_person`` holds its result.
+
 Not ported (it raises ``NotImplementedError``): the fused N-frame scan
 (``frames_per_sync > 1``; ROADMAP A.7).
 """
@@ -40,6 +43,7 @@ from ..frontend.extractor import FrameFeatures, OrbExtractor
 from ..frontend.initializer import draw_samples, initialize_two_view
 from ..geometry import se3, triangulate
 from ..geometry.camera import Camera, bounds_from_config
+from ..models import posenet
 from ..optim import pnp
 from ..optim.local_ba import BAProblem, solve_ba
 from ..optim.pose_opt import optimize_pose
@@ -554,6 +558,11 @@ class Tracker:
         # the last relocalization attempt: frame, candidates, their inliers
         self.last_reloc_attempt: Optional[dict] = None
         self.resets = 0
+        # the PoseNet person-keypoint head, run on every frame once
+        # enable_posenet() is called (src/Frame.cc:222-334); last_person holds
+        # its (positions (17, 2), scores (17,), scores > 0.7) device tensors
+        self.posenet = None
+        self.last_person: Optional[tuple] = None
 
     def _clear_session(self) -> None:
         """A fresh map, BoW index and per-frame state (not the trajectory)."""
@@ -597,6 +606,16 @@ class Tracker:
         g = torch.Generator().manual_seed(self.cfg.seed + 31 * frame_id + kf_id)
         return pnp.draw_samples(n_valid, g, self.device)
 
+    def enable_posenet(self, params=None) -> None:
+        """Run the PoseNet head on every frame, as the reference does in the
+        Frame ctor (src/Tracking.cc:184-187, src/Frame.cc:222-232). params: a
+        ``models.posenet.PoseNet`` (e.g. from ``load_params``); None draws
+        random weights from a generator seeded cfg.seed + 99 (no trained
+        weights are in the repository)."""
+        if params is None:
+            params = posenet.init_params(torch.Generator().manual_seed(self.cfg.seed + 99))
+        self.posenet = params.to(self.device)
+
     def _extract(self, image: torch.Tensor, initializing: bool) -> FrameFeatures:
         ex = self.init_extractor if initializing else self.extractor
         feats = ex(image)
@@ -609,6 +628,9 @@ class Tracker:
         self.frame_id += 1
         upload = lambda a: torch.as_tensor(np.asarray(a)).to(self.device)  # noqa: E731
         img = upload(image)
+        if self.posenet is not None:
+            # every frame, blank and lost ones too; no host read
+            self.last_person = posenet.person_keypoints_for_frame(self.posenet, img)
         initializing = self.state in (NO_IMAGES_YET, NOT_INITIALIZED)
         # the depth modes always extract with the map's feature budget
         feats = self._extract(img, initializing and depth is None and image_right is None)

@@ -5,6 +5,8 @@
   into a copy with one sentinel row that is sliced off afterwards, so no
   index ever needs a host-side filter (no device sync). ``put_last`` is
   the set whose indices repeat, resolved as XLA:CPU resolves it.
+* ``index_add``: ``x.at[idx].add(v)`` over rows with the same sums on every
+  run (the card's ``index_add_`` adds with float atomics).
 * ``launched_event`` / ``event_done``: ``is_ready`` polling, as a CUDA event
   recorded after a launch and polled with ``query()``.
 * ``topk``: ``jax.lax.top_k`` — ties go to the lower index, which
@@ -69,13 +71,26 @@ def put_last(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.
     return torch.where(hit, vals[pos.clamp(min=0)], arr)
 
 
+def index_add(out: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out.index_add_(0, index, src)``, summed in the same order on every run.
+    On the card ``index_add_`` adds with float atomics in the order they land,
+    so a sum changes in its last bits from run to run, a BA amplifies that
+    and a session parts from its rerun. There the accumulating ``index_put_``
+    is used instead: it sorts the rows stably and adds each row's values in
+    index order, one after another, so a row that a great many values go to
+    is slow. The CPU's ``index_add_`` adds in index order already."""
+    if out.is_cuda:
+        return out.index_put_((index,), src, accumulate=True)
+    return out.index_add_(0, index, src)
+
+
 def launched_event(device: torch.device):
     """A CUDA event recorded after the work just enqueued on ``device``; None
     on the CPU, where that work has already run."""
     if device.type != "cuda":
         return None
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(device))
     return ev
 
 
