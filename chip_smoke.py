@@ -19,7 +19,8 @@ Phases (each failure ends the run with a non-zero exit code):
      mapping on; asserts initialization, OK tracking from then on, keyframe
      and mapping-pass counts, the kernels' launch counts on that run (kernel
      A once per frame), and the scale-aligned ATE. One kernel-B call of the
-     fuse is recorded;
+     fuse is recorded. Then 20 more frames under torch.profiler: the CUDA
+     runtime's synchronizing calls per frame;
   6. kernel B at the recorded fuse inputs: exact; device times of the
      kernel, the v1 design and the plain version, and the inputs' sparsity:
      rows with valid1, columns per row's window, columns the binned kernel
@@ -37,7 +38,7 @@ Phases (each failure ends the run with a non-zero exit code):
      after initialization blank, while the map holds <= 5 keyframes. Asserts
      one reset (a fresh map and BoW index), reinitialization and OK to the
      end;
-  9. RGB-D (the JAX campaign's config-3 proxy): System.track_rgbd over 150
+  9. RGB-D (the JAX campaign's config-3 proxy): System.track_rgbd over 60
      frames of the occluding multi-plane world with photometric noise and
      exact depth maps (sensor "rgbd", bf 60, depth threshold 40). Asserts OK
      from frame 0 (depth initialization) to the end, more than one keyframe,
@@ -45,12 +46,12 @@ Phases (each failure ends the run with a non-zero exit code):
      save_map, a fresh System on the card load_map's it (arrays equal to the
      file's) and, in localization mode, relocalizes on one of frames 0-7;
  10. stereo (the config-4 proxy without loop closing): System.track_stereo
-     over 150 frames of a loop in the same world, baseline 0.12 m (bf 60),
+     over 60 frames of a loop in the same world, baseline 0.12 m (bf 60),
      uint8 pairs. Asserts OK to the end, >= 2 keyframes, > 100 points,
      metric ATE, kernel A twice per frame, B once per pass; on the first
      frame >= 80 stereo matches with a median depth error < 0.15 m against
      the rendered depth; prints match_stereo's device time there;
- 11. compaction: the phase-5 workload over 200 frames with a 12-keyframe
+ 11. compaction: the phase-5 workload over 100 frames with a 12-keyframe
      pool (local BA window 6): asserts at least one compaction (System.
      compact called by the per-frame trigger), > 80 % of frames OK, finite
      poses and the scale-aligned ATE; prints the compact() times;
@@ -77,7 +78,7 @@ Phases (each failure ends the run with a non-zero exit code):
      result's poses within 1e-3 and points within 1e-2 of solve_ba(5, 15) on
      the problem that call solved, two solve_ba runs equal, finite
      orthonormal keyframe poses; prints the call's time and peak memory;
- 15. PoseNet: the first 60 frames of phase 5's run with
+ 15. PoseNet: the first 40 frames of phase 5's run with
      tracker.enable_posenet(). Asserts
      last_person finite (17, 2) / (17,) / (17,) on the card with scores in
      [0, 1] on every frame, phase 5's OK and ATE bounds, one frame's
@@ -94,10 +95,27 @@ Phases (each failure ends the run with a non-zero exit code):
  18. the CLI on the card: ``python -m weiner_slamit_v2_torch.cli --dataset
      synthetic --frames 40 --eval --posenet`` with --out and --checkpoint in
      a subprocess: exit 0, both files written, its JSON line with
-     tracked_ok > 20 and an ate_rmse.
-The kernel launch counts of phases 5, 7-17 are each read from zero. With
-phase numbers as arguments (``python3 chip_smoke.py 9 10``) only those of
-phases 7-18 run, after phases 1-6 (phase 14 brings phase 12 with it).
+     tracked_ok > 20 and an ate_rmse;
+ 19. pipelined tracking at bench.py's configuration
+     (TrackingConfig(mapping_latency_frames=8, frames_per_sync=4)) over
+     phase 7's 200 frames and covered lens (frames 150-155), no
+     synchronization per frame, every full batch launched under
+     torch.cuda.set_sync_debug_mode("error"). Asserts the batched path
+     engaged (deferred frames), a trajectory entry for every frame from
+     initialization on, OK to frame 149, the loss resolved on frame 150
+     and reported within the next batch, OK again by frame 165 and to the
+     end, the scale-aligned ATE over the OK frames < 0.08 m (the JAX
+     package's pipelined bound), kernel A once per frame and B once per
+     mapping pass; prints ms/frame (host time per batch / 4 over frames
+     60-149) beside phase 5's and, over 20 more frames under
+     torch.profiler, the synchronizing calls per frame beside phase 5's.
+     Then phase 9's first 80 RGB-D frames with frames_per_sync=4 and
+     pipeline_warmup_kfs=3: batches launched sync-free, OK throughout,
+     metric ATE < 0.08 m, A once per frame, B once per pass.
+The kernel launch counts of phases 5, 7-17 and of each run of phase 19 are
+each read from zero. With phase numbers as arguments (``python3
+chip_smoke.py 9 10``) only those of phases 7-19 run, after phases 1-6
+(phase 14 brings phase 12 with it).
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
 line of kernel results (launches: summed over the phases that ran in this
 process), the card's name and power limit, and as the last line
@@ -124,16 +142,25 @@ ATE_BOUND_M = 0.06
 WORKLOAD = dict(H=480, W=640, f=500.0, n_features=1024, seed=0, motion_frames=164)
 RELOC = dict(n_frames=200, blank=range(150, 156), ok_by=165)   # phase 7
 RESET_FRAMES = 60                                             # phase 8
-POSENET_FRAMES = 60       # phase 15: the first half of phase 5's run, to save time
+# phases 9-11, 13 and 15 run at a cut depth to keep the whole script well
+# inside its time limit
+POSENET_FRAMES = 40       # phase 15: the first third of phase 5's run
+# phase 19: bench.py's TrackingConfig(mapping_latency_frames=8,
+# frames_per_sync=4) (bench.py:66) over phase 7's frames and covered lens;
+# the ms/frame window; the JAX package's pipelined ATE bound
+# (tests/test_tracking.py:173); then phase 9's first 80 RGB-D frames
+PIPELINED = dict(n_frames=200, blank=range(150, 156), ok_by=165, frames_per_sync=4,
+                 window=(60, 149), ate_bound=0.08, rgbd_frames=80)
+SYNC_FRAMES = 20          # frames traced for the synchronization counts (phases 5, 19)
 # phases 9-11: the JAX campaign's config 3 and 4 proxies
 # (tools/run_baseline.py:237-309) at the bench geometry, and a small pool
-DEPTH_FRAMES = 150
+DEPTH_FRAMES = 60
 BF = 60.0                     # baseline 0.12 m x fx 500
 DEPTH_THRESHOLD = 40.0
 RGBD_SEQ = dict(seed=6, motion="orbit", world="multi", photometric_noise=2.0, with_depth=True)
 STEREO_SEQ = dict(seed=7, motion="loop", world="multi", photometric_noise=2.0, with_depth=True,
                   stereo_baseline=BF / 500.0)
-COMPACT = dict(n_frames=200, max_keyframes=12, local_ba_window=6)
+COMPACT = dict(n_frames=100, max_keyframes=12, local_ba_window=6)
 # phase 12: a loop of radius 2.4 m (the out-and-back amplitude of
 # tests/test_loop.py widened to this footprint) flown 1.21 times in 176 frames
 # (~26 px per frame, the out-and-back's fastest), its start (the wedge from
@@ -449,8 +476,9 @@ def uint8(img: np.ndarray) -> np.ndarray:
 
 
 def bench_config(cam: dict | None = None, **tracking):
-    """(config, camera, K) of the bench geometry with frames_per_sync=1, the
-    given TrackingConfig fields and CameraConfig fields ``cam``."""
+    """(config, camera, K) of the bench geometry with frames_per_sync=1 (unless
+    ``tracking`` says otherwise), the given TrackingConfig fields and
+    CameraConfig fields ``cam``."""
     from weiner_slamit_v2_torch.config import CameraConfig, OrbConfig, SlamConfig, TrackingConfig
     from weiner_slamit_v2_torch.geometry.camera import Camera
 
@@ -461,7 +489,7 @@ def bench_config(cam: dict | None = None, **tracking):
         orb=OrbConfig(n_features=w["n_features"]),
         camera=CameraConfig(fx=f, fy=f, cx=cx, cy=cy, k1=0, k2=0, p1=0, p2=0, k3=0,
                             width=W, height=H, **(cam or {})),
-        tracking=TrackingConfig(mapping_latency_frames=8, frames_per_sync=1, **tracking),
+        tracking=TrackingConfig(**{"mapping_latency_frames": 8, "frames_per_sync": 1, **tracking}),
     )
     K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
     return cfg, Camera.create(f, f, cx, cy, width=W, height=H), K
@@ -534,7 +562,8 @@ def phase_slice(dev, card: str):
     from weiner_slamit_v2_torch.tracking import local_mapping
     from weiner_slamit_v2_torch.tracking.system import System
 
-    cfg, cam, seq, images = workload(N_FRAMES, abortable_ba=False)
+    cfg, cam, seq, images = workload(N_FRAMES + SYNC_FRAMES, abortable_ba=False)
+    extra, images, gt = images[N_FRAMES:], images[:N_FRAMES], seq.gt_Twc[:N_FRAMES]
     sys_ = System(cfg, cam)   # the card by default
     check(sys_.device.type == dev.type and sys_.tracker.m.kf_pose.is_cuda, str(sys_.device))
 
@@ -561,7 +590,7 @@ def phase_slice(dev, card: str):
     n_kf = sys_.n_keyframes()
     n_pass = sys_.mapping_passes
     ts, Twc = sys_.tracker.trajectory_Twc()
-    ate = ate_rmse(Twc, seq.gt_Twc[-len(Twc):])
+    ate = ate_rmse(Twc, gt[-len(Twc):])
     steady = frame_ms[init + 1:]
     log(f"slice: init at frame {init}, states after init: "
         f"{sum(s == 'OK' for s in states[init:])} OK of {N_FRAMES - init}, keyframes created="
@@ -578,6 +607,8 @@ def phase_slice(dev, card: str):
     check(np.isfinite(Twc).all() and Twc.shape == (N_FRAMES - init, 4, 4), str(Twc.shape))
     check(ate < ATE_BOUND_M, f"ATE {ate} m >= {ATE_BOUND_M} m")
     check(bool(captured), "the fuse never called kernel B")
+    SLICE_MS["syncs"] = sync_calls(lambda i: sys_.track_monocular(extra[i], seq.frames[N_FRAMES + i].timestamp),
+                                   "slice", card)
     return launches, captured
 
 
@@ -1525,6 +1556,167 @@ def phase_cli(dev, card: str) -> dict:
     return {}
 
 
+def sync_calls(feed, label: str, card: str) -> dict:
+    """Host synchronizations per frame over SYNC_FRAMES steady-state frames
+    fed by feed(i), from torch.profiler's trace of the CUDA runtime:
+    cudaStreamSynchronize, cudaDeviceSynchronize, cudaEventSynchronize and
+    the synchronous cudaMemcpy (the asynchronous copies beside them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
+             "cudaMemcpyAsync", "cudaLaunchKernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(SYNC_FRAMES):
+            feed(i)
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.profiler.kineto_results.events():   # raw: no FunctionEvent per launch
+        name = e.name()
+        if name in counts:
+            counts[name] += 1
+    per = {k: v / SYNC_FRAMES for k, v in counts.items()}
+    log(f"{label}: CUDA runtime calls per frame over {SYNC_FRAMES} steady-state frames (torch.profiler, "
+        f"{time.perf_counter() - t0:.1f} s with the trace): {json.dumps(per)} on {card}")
+    check(counts["cudaLaunchKernel"] > 0, f"{label}: the trace holds no kernel launch")
+    return per
+
+
+def drive_pipelined(sys_, feed, n: int, blank=()):
+    """Feed n frames (``blank`` ones a constant 128 image) without a
+    synchronization per frame, then finish(). Returns (outputs, the host
+    time at each frame's return, the frames that launched a batch)."""
+    t = sys_.tracker
+    outs, stamps, launched = [], [], []
+    for i in range(n):
+        before = t.batches_launched
+        outs.append(feed(i, i in blank))
+        stamps.append(time.perf_counter())
+        if t.batches_launched != before:
+            launched.append(i)
+    sys_.finish()
+    torch.cuda.synchronize()
+    return outs, stamps, launched
+
+
+def guard_batches(t) -> list:
+    """Run every batch launch of tracker t under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing call inside one
+    raises. Returns a list that counts the guarded launches."""
+    real, guarded = t._launch_batch, []
+
+    def launch(recs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(recs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        guarded.append(len(recs))
+
+    t._launch_batch = launch
+    return guarded
+
+
+def batch_ms(stamps, launched, first: int, last: int, fps: int) -> list:
+    """Host ms per frame of each batch launched within frames [first, last]:
+    the time from the previous batch's launch to this one's, over fps."""
+    return [(stamps[b] - stamps[a]) * 1e3 / fps for a, b in zip(launched, launched[1:])
+            if first <= a and b <= last and b - a == fps]
+
+
+def phase_pipelined(dev, card: str) -> dict:
+    """Phase 19: pipelined tracking at bench.py's configuration over phase 7's
+    covered lens, then a short pipelined RGB-D run."""
+    from weiner_slamit_v2_torch.io.evaluation import ate_rmse
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    p = PIPELINED
+    n, blank, ok_by, fps = p["n_frames"], p["blank"], p["ok_by"], p["frames_per_sync"]
+    cfg, cam, seq, images = workload(n + SYNC_FRAMES, frames_per_sync=fps)
+    tc = cfg.tracking
+    check(tc.frames_per_sync == 4 and tc.mapping_latency_frames == 8 and tc.pipeline_warmup_kfs == 8
+          and tc.abortable_ba, f"not bench.py's TrackingConfig: {tc}")
+    sys_ = System(cfg, cam)
+    t = sys_.tracker
+    guarded = guard_batches(t)
+    feed = lambda i, b: sys_.track_monocular(np.full_like(images[i], 128) if b else images[i],  # noqa: E731
+                                             seq.frames[i].timestamp)
+    reset_launches()
+    outs, stamps, launched = drive_pipelined(sys_, feed, n, blank)
+    launches = read_launches()
+    states = [o.state for o in outs]
+    init = states.index("OK")
+    deferred = sum(o.deferred for o in outs)
+    first_lost = next((i for i in range(init, n) if states[i] != "OK"), None)
+    back = next((i for i in range(first_lost or n, n) if states[i] == "OK"), None)
+    lost_at = t.loss_frames[0] if t.loss_frames else None
+    resolved = ["LOST" if lost_at is not None and back is not None and lost_at <= i < back else s
+                for i, s in enumerate(states)]
+    ate = ok_frames_ate(sys_, resolved, seq.gt_Twc[:n])
+    per = batch_ms(stamps, launched, *p["window"], fps)
+    log(f"pipelined: TrackingConfig(mapping_latency_frames=8, frames_per_sync=4), init at frame {init}, "
+        f"{deferred} deferred frames, {len(guarded)} full batches launched under "
+        f"set_sync_debug_mode('error'), losses resolved on frames {t.loss_frames}, first LOST output "
+        f"frame {first_lost}, OK again at frame {back}, relocalizations at {t.last_reloc_frame}, "
+        f"trajectory entries {len(t.trajectory)}, keyframes created {t.n_kf_host} (valid "
+        f"{sys_.n_keyframes()}), staged passes {sys_.staged_passes} (adopted {sys_.mapping_passes}), "
+        f"ATE over OK frames {ate:.5f} m, launches {launches}")
+    log(f"pipelined: median {np.median(per):.3f} ms/frame, p90 {np.percentile(per, 90):.3f} ms/frame "
+        f"over the {len(per)} batches in frames {p['window'][0]}-{p['window'][1]} (host time from one "
+        f"batch's launch to the next / {fps}, no synchronization per frame); phase 5 (frames_per_sync=1, "
+        f"synchronized per frame): median {SLICE_MS.get('median', float('nan')):.3f}, p90 "
+        f"{SLICE_MS.get('p90', float('nan')):.3f} on {card}")
+    check(deferred > 0 and len(guarded) > 0 and all(g == fps for g in guarded),
+          f"the batched path did not engage: {deferred} deferred, batches {guarded}")
+    check(len(t.trajectory) == n - init, f"{len(t.trajectory)} trajectory entries for {n - init} frames")
+    check(all(s == "OK" for s in states[init:blank[0]]) and not [f for f in t.loss_frames if f < blank[0]],
+          f"lost before frame {blank[0]}: {states[init:blank[0]]}, losses {t.loss_frames}")
+    check(lost_at == blank[0] and first_lost is not None and first_lost < blank[0] + 2 * fps,
+          f"loss on frame {lost_at} (want {blank[0]}), first LOST output {first_lost}")
+    check(back is not None and back <= ok_by and all(s == "OK" for s in states[back:])
+          and len(t.loss_frames) == 1, f"OK again at frame {back} (want <= {ok_by}), states "
+          f"{states[blank[0]:]}, losses {t.loss_frames}")
+    check(ate < p["ate_bound"], f"ATE {ate} m >= {p['ate_bound']} m")
+    check(launches["fast_score_nms"] == n, f"{launches}, want A once per frame ({n})")
+    check(launches["windowed_best2"] >= sys_.staged_passes >= sys_.mapping_passes > 0,
+          f"{launches}, passes {sys_.staged_passes}")
+    check(len(per) >= 10, f"only {len(per)} batches in the window")
+    syncs = sync_calls(lambda i: feed(n + i, False), "pipelined", card)
+    log(f"pipelined: synchronizing calls per frame {syncs['cudaStreamSynchronize']} "
+        f"cudaStreamSynchronize, {syncs['cudaMemcpy']} cudaMemcpy; phase 5: "
+        f"{SLICE_MS.get('syncs', {}).get('cudaStreamSynchronize')} and "
+        f"{SLICE_MS.get('syncs', {}).get('cudaMemcpy')} on {card}")
+
+    # RGB-D: phase 9's first frames, pipelined once 3 keyframes exist
+    nr = p["rgbd_frames"]
+    cfg, cam, seq, images = workload(nr, cam=dict(baseline_times_fx=BF, depth_threshold=DEPTH_THRESHOLD),
+                                     seq=RGBD_SEQ, frames_per_sync=fps, pipeline_warmup_kfs=3)
+    sys_ = System(cfg.replace(sensor="rgbd"), cam)
+    t = sys_.tracker
+    guarded = guard_batches(t)
+    feed = lambda i, b: sys_.track_rgbd(images[i], seq.frames[i].depth, seq.frames[i].timestamp)  # noqa: E731
+    reset_launches()
+    outs, stamps, launched = drive_pipelined(sys_, feed, nr)
+    launches_rgbd = read_launches()
+    states = [o.state for o in outs]
+    _, Twc = t.trajectory_Twc()
+    ate = ate_rmse(Twc, seq.gt_Twc, align_scale=False) if len(Twc) == nr else float("nan")
+    per = batch_ms(stamps, launched, 0, nr, fps)
+    log(f"pipelined rgbd: {nr} frames, {sum(o.deferred for o in outs)} deferred, {len(guarded)} full "
+        f"batches launched under set_sync_debug_mode('error'), losses {t.loss_frames}, keyframes "
+        f"{t.n_kf_host}, passes {sys_.staged_passes}, metric ATE {ate:.5f} m, launches {launches_rgbd}; "
+        f"median {np.median(per):.3f} ms/frame over {len(per)} batches (no synchronization per frame) "
+        f"on {card}")
+    check(len(guarded) > 0 and all(s == "OK" for s in states) and not t.loss_frames,
+          f"rgbd: batches {guarded}, states {states}, losses {t.loss_frames}")
+    check(len(Twc) == nr and ate < p["ate_bound"], f"rgbd: {len(Twc)} entries, metric ATE {ate} m")
+    check(launches_rgbd["fast_score_nms"] == nr, f"rgbd: {launches_rgbd}, want A once per frame")
+    check(launches_rgbd["windowed_best2"] >= sys_.staged_passes >= sys_.mapping_passes > 0,
+          f"rgbd: {launches_rgbd}, passes {sys_.staged_passes}")
+    return {k: launches[k] + launches_rgbd[k] for k in launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1552,7 +1744,7 @@ def main() -> int:
                   .frames[1].image)
     kern_a = phase_kernel_a(frame, dev)
     phase_kernel_b(dev)
-    want = {int(a) for a in sys.argv[1:]} or set(range(7, 19))
+    want = {int(a) for a in sys.argv[1:]} or set(range(7, 20))
     if 14 in want:
         want.add(12)   # phase 14 runs on phase 12's map
     launches, captured = phase_slice(dev, card)
@@ -1562,7 +1754,7 @@ def main() -> int:
              (12, "loop", phase_loop), (13, "stereo_loop", phase_stereo_loop),
              (14, "distributed_gba", phase_gba), (15, "posenet", phase_posenet),
              (16, "extract", phase_extract), (17, "mapping_device", phase_mapping_device),
-             (18, "cli", phase_cli)]
+             (18, "cli", phase_cli), (19, "pipelined", phase_pipelined)]
     by_path = {"slice": launches}
     for num, name, phase in paths:
         if num in want:

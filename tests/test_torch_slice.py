@@ -109,11 +109,11 @@ def test_trajectory_export(runs, tmp_path):
     assert len(open(kf).readlines()) == tsys.n_keyframes()
 
 
-def test_unported_configurations_raise(tmp_path):
+def test_every_configuration_constructs(tmp_path):
     """The depth entry points, the map checkpoints and loop closing work
-    (ROADMAP A.10, A.12 and A.11 landed); frames_per_sync > 1 still raises
-    naming A.7. The default TrackingConfig (abortable_ba=True, the staged
-    pass) constructs."""
+    (ROADMAP A.10, A.12 and A.11 landed), and so does the pipelined mode: a
+    frames_per_sync=4 System constructs and tracks a frame. The default
+    TrackingConfig (abortable_ba=True, the staged pass) constructs."""
     cfg = small_config(tconfig)
     cam = Camera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H)
     staged = System(cfg.replace(tracking=tconfig.TrackingConfig()), cam, device="cpu")
@@ -136,6 +136,7 @@ def test_unported_configurations_raise(tmp_path):
     assert len(open(tmp_path / "kitti.txt").readline().split()) == 12
     looping = System(cfg, cam, device="cpu", enable_loop_closing=True)
     assert looping.loop_closer is not None and not looping.loop_closer.fix_scale
-    with pytest.raises(NotImplementedError, match="A.7"):
-        System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)), cam,
-               device="cpu")
+    pipelined = System(cfg.replace(tracking=tconfig.TrackingConfig(frames_per_sync=4, abortable_ba=False)),
+                       cam, device="cpu")
+    out = pipelined.track_rgbd(f.image, f.depth, 0.0)
+    assert out.state == "OK" and out.created_kf and pipelined.tracker.n_kf_host == 1

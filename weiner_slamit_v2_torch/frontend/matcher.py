@@ -13,7 +13,7 @@ import torch
 
 from ..ops import hamming
 from ..ops.hamming import INVALID_DIST
-from ..util import put
+from ..util import device_const, put
 
 TH_LOW = 50       # ORBmatcher.cc:37
 TH_HIGH = 100     # ORBmatcher.cc:38
@@ -24,15 +24,16 @@ _I32_MAX = 2**31 - 1
 def rotation_consistency_mask(angle1, angle2_matched, match_valid, n_bins: int = HISTO_LENGTH):
     """Keep matches whose rotation offset is in the 3 dominant histogram bins
     (ComputeThreeMaxima, ORBmatcher.cc:1605-1646; bins 2-3 need >= 0.1x max)."""
-    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=angle1.device)
+    two_pi = device_const("two_pi", angle1.device,
+                          lambda d: torch.tensor(2.0 * math.pi, dtype=torch.float32, device=d))
     rot = torch.remainder(angle1 - angle2_matched, two_pi)
     bins = ((rot * n_bins) / two_pi).to(torch.int32).clamp(0, n_bins - 1)
     counts = put(torch.zeros(n_bins, dtype=torch.int32, device=angle1.device),
                  bins, match_valid.to(torch.int32), "add")
     top3 = torch.argsort(-counts, stable=True)[:3]
-    c1 = counts[top3[0]]
-    keep1 = torch.where(counts[top3[1]] >= 0.1 * c1, top3[1], -1)
-    keep2 = torch.where(counts[top3[2]] >= 0.1 * c1, top3[2], -1)
+    c = counts[top3]        # a gather: a 0-d tensor index would be read on the host
+    keep1 = torch.where(c[1] >= 0.1 * c[0], top3[1], -1)
+    keep2 = torch.where(c[2] >= 0.1 * c[0], top3[2], -1)
     in_top = (bins == top3[0]) | (bins == keep1) | (bins == keep2)
     return match_valid & in_top
 
@@ -46,7 +47,10 @@ def match_with_window(desc1, desc2, valid1, valid2, pred_xy, xy2, window,
     mutual-best and rotation checks). Returns (match_idx (N1,) int32 or -1,
     best_dist (N1,))."""
     n1 = desc1.shape[0]
-    window = torch.as_tensor(window, dtype=torch.float32, device=desc1.device).expand(n1)
+    if torch.is_tensor(window):
+        window = window.to(torch.float32).expand(n1)
+    else:
+        window = torch.full((n1,), window, dtype=torch.float32, device=desc1.device)
     dxy = (xy2[None, :, :] - pred_xy[:, None, :]).abs()
     pair = (dxy[..., 0] < window[:, None]) & (dxy[..., 1] < window[:, None])
     if octave2 is not None:

@@ -10,7 +10,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..util import fma
+from ..util import device_const, fma
 
 
 @dataclass(frozen=True)
@@ -51,9 +51,10 @@ class Camera:
         fixed-point iteration as the reference (Frame::UndistortKeyPoints,
         src/Frame.cc:529-559). The final ``f * x + c`` is one fused
         multiply-add, as the reference's compiled program evaluates it."""
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=uv.device)  # noqa: E731
-        fx, fy, cx, cy = f32(self.fx), f32(self.fy), f32(self.cx), f32(self.cy)
-        k1, k2, k3, p1, p2 = (f32(v) for v in (self.k1, self.k2, self.k3, self.p1, self.p2))
+        vals = (self.fx, self.fy, self.cx, self.cy, self.k1, self.k2, self.k3, self.p1, self.p2)
+        fx, fy, cx, cy, k1, k2, k3, p1, p2 = device_const(
+            ("undistort", vals), uv.device,
+            lambda d: torch.tensor(vals, dtype=torch.float32, device=d).unbind())
         d = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], -1)
         x = d
         if any(v != 0.0 for v in (self.k1, self.k2, self.k3, self.p1, self.p2)):

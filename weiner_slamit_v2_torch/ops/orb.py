@@ -10,13 +10,14 @@ from __future__ import annotations
 import torch
 
 from . import pattern as pat
-from ..util import fma
+from ..util import device_const, fma
 from .patches import extract_patches, sample_in_patch
 
 
 def orientations(image: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation per keypoint, radians."""
-    mask, xs, ys = (torch.from_numpy(a).to(image.device) for a in pat.orientation_disc())
+    mask, xs, ys = device_const("orientation_disc", image.device, lambda d: tuple(
+        torch.from_numpy(a).to(d) for a in pat.orientation_disc()))
     patches = extract_patches(image, xy, pat.HALF_PATCH) * mask
     m10 = (patches * xs).sum((1, 2))
     m01 = (patches * ys).sum((1, 2))
@@ -27,7 +28,8 @@ def brief_descriptors(blurred: torch.Tensor, xy: torch.Tensor, angle: torch.Tens
     """Steered BRIEF-256 on the blurred level: (N, 8) int32."""
     half = pat.HALF_PATCH
     patches = extract_patches(blurred, xy, half)
-    p = torch.from_numpy(pat.brief_pattern().reshape(-1, 2)).to(blurred.device).float()
+    p = device_const("brief_pattern", blurred.device, lambda d: torch.from_numpy(
+        pat.brief_pattern().reshape(-1, 2)).to(d).float())
     ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
     px, py = p[None, :, 0], p[None, :, 1]
     # steered pattern x' = x cos - y sin, y' = x sin + y cos, each one fused

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..util import fma
+from ..util import device_const, fma
 
 
 def level_shapes(h: int, w: int, n_levels: int, scale_factor: float) -> list[tuple[int, int]]:
@@ -74,9 +74,13 @@ def resize_linear(image: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     """(H, W) float32 -> shape, bit-compatible with the reference's resize."""
     h, w = image.shape
     dev = image.device
-    i0, i1, w0, w1 = (torch.from_numpy(a).to(dev) for a in _taps(h, shape[0]))
+    def taps(m, n):
+        return device_const(("resize_taps", m, n), dev,
+                            lambda d: tuple(torch.from_numpy(a).to(d) for a in _taps(m, n)))
+
+    i0, i1, w0, w1 = taps(h, shape[0])
     rows = fma(w1[:, None], image[i1], image[i0] * w0[:, None])
-    i0, i1, w0, w1 = (torch.from_numpy(a).to(dev) for a in _taps(w, shape[1]))
+    i0, i1, w0, w1 = taps(w, shape[1])
     return rows[:, i0] * w0 + rows[:, i1] * w1
 
 

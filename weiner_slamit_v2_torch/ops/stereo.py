@@ -37,8 +37,10 @@ def match_stereo(left_feats, right_feats, left_img: torch.Tensor, right_img: tor
     Frame::mvDepth / mvuRight.
     """
     dev = left_img.device
-    bf = torch.as_tensor(baseline_fx, dtype=torch.float32, device=dev)
-    max_d = bf / torch.clamp(torch.as_tensor(min_z_depth, dtype=torch.float32, device=dev), min=1e-6)
+    bf, min_z = (v.to(torch.float32) if torch.is_tensor(v)
+                 else torch.full((), v, dtype=torch.float32, device=dev)
+                 for v in (baseline_fx, min_z_depth))
+    max_d = bf / torch.clamp(min_z, min=1e-6)
     xl, yl = left_feats.xy[:, 0], left_feats.xy[:, 1]
     xr, yr = right_feats.xy[:, 0], right_feats.xy[:, 1]
 

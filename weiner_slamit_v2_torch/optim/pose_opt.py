@@ -91,7 +91,7 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
     Tcw, inliers = Tcw0, valid
     for rnd in range(n_rounds):
         robust = rnd < 2   # robust kernel off from round 2 (Optimizer.cc:432)
-        lam = torch.tensor(lambda_init, dtype=torch.float32, device=Tcw0.device)
+        lam = torch.full((), lambda_init, dtype=torch.float32, device=Tcw0.device)
         for _ in range(n_iters):
             ru, rv, Ju, Jv, z, rur, Jur = resid(Tcw)
             chi2 = (ru * ru + rv * rv) * inv_sigma2

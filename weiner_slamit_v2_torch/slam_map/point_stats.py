@@ -86,7 +86,9 @@ def predict_octave(dist, max_dist, scale_factor, n_levels: int) -> torch.Tensor:
     """Predicted pyramid level from viewing distance (MapPoint::PredictScale,
     src/MapPoint.cc:391-400)."""
     ratio = torch.clamp(max_dist, min=1e-9) / torch.clamp(dist, min=1e-9)
-    log_s = torch.log(torch.as_tensor(scale_factor, dtype=torch.float32, device=dist.device))
+    if not torch.is_tensor(scale_factor):
+        scale_factor = torch.full((), scale_factor, dtype=torch.float32, device=dist.device)
+    log_s = torch.log(scale_factor.to(torch.float32))
     lvl = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_s)
     return lvl.to(torch.int32).clamp(0, n_levels - 1)
 

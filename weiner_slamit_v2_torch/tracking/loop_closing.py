@@ -135,6 +135,7 @@ class LoopCloser:
         t = self.tracker
         if t.n_kf_host < g["n_kf_snap"] or t.n_kf_host == 0:
             return False
+        t.flush_pending()
         old_ref_pose = t.m.kf_pose[t.ref_kf]
         t.m = _adopt_gba(t.m, g["res"].cam_pose, g["cam_ids"], g["res"].points, g["point_ids"],
                          g["n_kf_snap"])

@@ -33,8 +33,9 @@ can be reclaimed, compacts the map (keyframe slot ids are never reused).
 ``save_map`` / ``load_map`` write and read the JAX package's npz checkpoint
 layout.
 
-Not ported: the fused N-frame scan (``frames_per_sync > 1``; the tracker
-raises ``NotImplementedError`` naming ROADMAP A.7).
+With ``frames_per_sync > 1`` the tracker resolves its pipelined frames
+(``flush_pending``) before a mapping pass or a global BA is adopted, and
+before ``finish`` and every export.
 """
 
 from __future__ import annotations
@@ -217,6 +218,14 @@ class System:
             return False
         if not (force or chained or event_done(self._pending_event)):
             return False
+        # resolve the pipelined frames before the swap: a late keyframe
+        # decision freezes into the map those frames were tracked on. The
+        # resolution can re-enter here (the idle check of NeedNewKeyFrame),
+        # adopt this pass and enqueue the next: then the token has changed
+        kf_token = self._pending_kf
+        self.tracker.flush_pending()
+        if self._pending_kf != kf_token:
+            return self._pending_map is None and self._stage is None
         t = self.tracker
         m, kf_id = self._pending_map.to(self.device), self._pending_kf
         snap_v, snap_f = self._pending_counters
@@ -261,12 +270,19 @@ class System:
             for i, (ts, T_cr, ref) in enumerate(t.trajectory):
                 if ref == c:
                     t.trajectory[i] = (ts, T_cr @ T_cp, new_ref)
+            # pipelined records in flight anchored to the slot are re-anchored
+            # at resolution; earlier remaps that point at it chain on
+            for k, (T_prev, r_prev) in list(t.culled_remap.items()):
+                if r_prev == c:
+                    t.culled_remap[k] = (T_prev @ T_cp, new_ref)
+            t.culled_remap[c] = (T_cp, new_ref)
             if t.ref_kf == c and new_ref >= 0:
                 t.ref_kf = new_ref
 
     def finish(self) -> None:
-        """Adopt any waiting mapping pass, then any global BA in flight
-        (System::Shutdown analogue)."""
+        """Resolve the pipelined frames, then adopt any waiting mapping pass
+        and any global BA in flight (System::Shutdown analogue)."""
+        self.tracker.flush_pending()
         self.mapper_idle(force=True)
         if self.loop_closer is not None:
             self.loop_closer.poll_global_ba(force=True)
@@ -297,6 +313,7 @@ class System:
         t.ref_kf = rk if rk >= 0 else max(t.n_kf_host - 1, 0)
         if t.last_obs is not None:
             t.last_obs = torch.where(t.last_obs >= 0, mp_map[t.last_obs.clamp(min=0)], -1)
+        t.culled_remap.clear()    # finish() resolved every record in flight
         t.bow.permute(kf_map)
         if self.loop_closer is not None:
             lc = self.loop_closer

@@ -18,11 +18,38 @@
   an even count; ``torch.nanmedian`` returns the lower one).
 * ``resolve_device``: the entry points' device argument; ``None`` means the
   card, with no fallback to the CPU.
+* ``device_const``: a constant tensor built once per device. A tensor built
+  from host data on every call is a copy from pageable memory and a stream
+  synchronization on the card; ``put`` fills Python scalars on the device
+  for the same reason.
 """
 
 from __future__ import annotations
 
+import numbers
+from typing import Callable
+
 import torch
+
+_CONSTS: dict = {}
+
+
+def device_const(key, device, make: Callable):
+    """``make(device)``, built on the first call for (key, device) and
+    returned as is afterwards. The result is shared: callers never write to
+    it."""
+    k = (key, torch.device(device))
+    if k not in _CONSTS:
+        _CONSTS[k] = make(torch.device(device))
+    return _CONSTS[k]
+
+
+def _on_device(v, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(v, dtype, device)``; a Python or numpy scalar is
+    filled on the device instead of copied there."""
+    if isinstance(v, numbers.Number):
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device)
 
 
 def put(arr: torch.Tensor, idx, vals, op: str = "set") -> torch.Tensor:
@@ -33,7 +60,7 @@ def put(arr: torch.Tensor, idx, vals, op: str = "set") -> torch.Tensor:
     lead = len(idx)
     shape = arr.shape
     tail = tuple(shape[lead:])
-    idx = torch.broadcast_tensors(*[torch.as_tensor(i, device=arr.device) for i in idx])
+    idx = torch.broadcast_tensors(*[_on_device(i, arr.device) for i in idx])
     ok = torch.ones(idx[0].shape, dtype=torch.bool, device=arr.device)
     lin = torch.zeros(idx[0].shape, dtype=torch.int64, device=arr.device)
     n = 1
@@ -45,7 +72,7 @@ def put(arr: torch.Tensor, idx, vals, op: str = "set") -> torch.Tensor:
     lin = torch.where(ok, lin, n).reshape(-1)
     flat = arr.reshape((n,) + tail)
     ext = torch.cat([flat, flat.new_zeros((1,) + tail)])
-    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    vals = _on_device(vals, arr.device, arr.dtype)
     vals = vals.broadcast_to(idx[0].shape + tail).reshape((-1,) + tail)
     if op == "set":
         ext.index_put_((lin,), vals)
