@@ -90,7 +90,8 @@ class TrackingConfig:
     # synchronous Track() semantics). N>1 pipelines N fused steps on the
     # device and resolves LOST/keyframe decisions up to N-1 frames late —
     # the decisions the reference's own async threads also make late. The
-    # port runs 1 only (System raises for N>1; ROADMAP A.7).
+    # port launches each batch with no host synchronization and resolves it
+    # one batch later (tracking/tracker.py).
     frames_per_sync: int = 1
     # With frames_per_sync > 1, resolve every frame anyway until the map has
     # this many keyframes: keyframe-timing lateness hurts exactly while the

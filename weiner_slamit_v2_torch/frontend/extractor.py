@@ -9,6 +9,7 @@ on the card; the output is the fixed-size, padded ``FrameFeatures`` set.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -97,3 +98,10 @@ class OrbExtractor:
         xy, resp, ang, octv, desc, valid = (torch.cat(p) for p in zip(*parts))
         return FrameFeatures(xy=xy, xy_und=xy, response=resp, angle=ang,
                              octave=octv, desc=desc, valid=valid)
+
+
+@functools.lru_cache(maxsize=8)
+def get_extractor(cfg: OrbConfig, image_hw: tuple[int, int]) -> OrbExtractor:
+    """One extractor per (config, image size). It holds no tensors (each
+    call works on its image's device), so one instance serves every device."""
+    return OrbExtractor(cfg, image_hw)

@@ -17,6 +17,7 @@ from ..geometry import se3, triangulate
 
 N_RANSAC = 200        # Initializer.cc:86-106
 SAMPLE_SIZE = 8
+SIGMA = 1.0
 TH_H = 5.991          # Initializer.cc:342
 TH_F = 3.841          # Initializer.cc:417
 TH_SCORE = 5.991      # Initializer.cc:418

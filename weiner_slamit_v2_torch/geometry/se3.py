@@ -100,10 +100,18 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom.expand(*batch, 1, 4)], -2)
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def inv(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid transform (batched)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
     return from_rt(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
 
 
 def apply(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

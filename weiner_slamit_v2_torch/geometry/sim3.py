@@ -35,6 +35,10 @@ def trans_of(S: torch.Tensor) -> torch.Tensor:
     return S[..., :3, 3]
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def from_se3(T: torch.Tensor) -> torch.Tensor:
     """An SE3 as a Sim3 of scale 1 (the same matrix)."""
     return T

@@ -22,6 +22,11 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
 
 
+def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise distance of equally shaped packed descriptors (..., 8)."""
+    return popcount32(a ^ b).sum(-1, dtype=torch.int32)
+
+
 def distance_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """All-pairs distances: (..., N1, 8) x (..., N2, 8) -> (..., N1, N2) int32."""
     x = d1[..., :, None, :] ^ d2[..., None, :, :]
@@ -42,6 +47,17 @@ def packed_min(dist: torch.Tensor):
     iota = torch.arange(n2, dtype=torch.int32, device=dist.device)
     m = (dist.to(torch.int32) * n2 + iota).amin(-1)
     return m % n2, m // n2
+
+
+def mutual_best(dist: torch.Tensor):
+    """(match_idx (N1,) int32, index into axis 1 or -1; best_dist (N1,)):
+    mutual nearest neighbours, the check of SearchForInitialization
+    (src/ORBmatcher.cc:497-506); ties go to the lower index both ways."""
+    fwd, best = packed_min(dist)
+    bwd, _ = packed_min(dist.T)
+    rows = torch.arange(dist.shape[0], dtype=torch.int32, device=dist.device)
+    ok = (bwd[fwd.long()] == rows) & (best < INVALID_DIST)
+    return torch.where(ok, fwd, -1), best
 
 
 def best_and_second(dist: torch.Tensor):

@@ -14,6 +14,7 @@ from ..geometry import se3
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815     # 3-dof 95% gate (Optimizer.cc:310)
+HUBER_MONO = 2.4476519  # sqrt(5.991), Optimizer.cc:287
 
 
 def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -227,3 +227,13 @@ def rebuild_observation_lists(m: SlamMap) -> SlamMap:
         mp_obs_feat=put(full(), (mp_w, rk_w), flat_ft),
         mp_n_obs=put(torch.zeros(Mx, dtype=torch.int32, device=dev), mp_w, 1, "add"),
     )
+
+
+def recount_observations(m: SlamMap) -> torch.Tensor:
+    """(M,) int32 number of observing keyframes per point, from kf_obs (the
+    ground truth for mp_n_obs; useful after culling). Integer sums, so the
+    card's atomic ``index_add_`` is exact."""
+    flat = m.kf_obs.reshape(-1)
+    has = (flat >= 0) & m.kf_feat_valid.reshape(-1) & m.kf_valid.repeat_interleave(m.n_feat)
+    counts = torch.zeros(m.max_mp, dtype=torch.int32, device=m.device)
+    return counts.index_add_(0, torch.where(has, flat, 0).long(), has.to(torch.int32))
