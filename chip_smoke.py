@@ -95,7 +95,13 @@ Phases (each failure ends the run with a non-zero exit code):
      head's device time;
  16. data-parallel extraction: 8 bench-orbit frames at 640x480 through
      batched_extract and sharded_extract (world size 1): bit-equal to
-     per-frame extraction, kernel A once per frame;
+     per-frame extraction, kernel A once per frame; then the exact front
+     end on the card against the CPU port on those 8 frames and on one frame
+     each at 376x1241 (KITTI) and 480x752 (EuRoC): pyramid levels,
+     keypoints, angles and descriptors bit for bit (prints how many
+     differ); prints host and device times and kernel launches of the
+     exact pyramid, orientation, atan2 and sin/cos beside the forms they
+     replaced (kept in this file), and of one whole extraction;
  17. mapping on another device: System(device="cuda", mapping_device="cpu")
      at 320x240 with 512 features over 40 frames. Asserts OK after
      initialization, adopted passes and the adopted map on the card;
@@ -1562,8 +1568,132 @@ def phase_posenet(dev, card: str) -> dict:
     return launches
 
 
+# --- the forms the exact front end replaced, kept here to time against -------
+
+_FIXED_TAPS: dict = {}
+
+
+def resize_fixed_forms(image: torch.Tensor, shape) -> torch.Tensor:
+    """The port's resize before the exact one: every output's two taps in one
+    form per pass (rows ``fma(w1, x1, w0 * x0)``, columns ``w0 * x0 + w1 * x1``)."""
+    from weiner_slamit_v2_torch.ops import pyramid
+    from weiner_slamit_v2_torch.util import fma
+
+    def taps(m, n):
+        key = (m, n, image.device)
+        if key not in _FIXED_TAPS:
+            _FIXED_TAPS[key] = tuple(torch.from_numpy(a).to(image.device) for a in pyramid._taps(m, n))
+        return _FIXED_TAPS[key]
+
+    h, w = image.shape
+    i0, i1, w0, w1 = taps(h, shape[0])
+    rows = fma(w1[:, None], image[i1], image[i0] * w0[:, None])
+    i0, i1, w0, w1 = taps(w, shape[1])
+    return rows[:, i0] * w0 + rows[:, i1] * w1
+
+
+def pyramid_fixed_forms(image: torch.Tensor, n_levels: int, scale_factor: float) -> list:
+    from weiner_slamit_v2_torch.ops import pyramid
+
+    shapes = pyramid.level_shapes(*image.shape, n_levels, scale_factor)
+    levels = [image]
+    for shape in shapes[1:]:
+        levels.append(resize_fixed_forms(levels[-1], shape))
+    return levels
+
+
+def orientations_summed(patches: torch.Tensor, disc) -> torch.Tensor:
+    """The port's orientation before the exact one: torch's sums, torch.atan2.
+    disc: (mask, xs, ys) of ops/pattern.py on the patches' device."""
+    mask, xs, ys = disc
+    masked = patches * mask
+    return torch.atan2((masked * ys).sum((1, 2)), (masked * xs).sum((1, 2)))
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels one fn() launches (torch.profiler's trace of the runtime)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+               for e in prof.profiler.kineto_results.events())
+
+
+def front_end_exact(dev, card: str, cfg, images) -> None:
+    """The exact front end on the card against the CPU port: pyramid levels,
+    keypoints, angles and descriptors of the 8 bench frames and of one
+    frame at 376x1241 (KITTI) and at 480x752 (EuRoC), bit for bit; then the
+    exact pyramid, orientation, atan2 and sin/cos timed beside the forms
+    they replaced, and the kernel launches each takes."""
+    from weiner_slamit_v2_torch.frontend.extractor import OrbExtractor
+    from weiner_slamit_v2_torch.io.datasets import make_synthetic_sequence
+    from weiner_slamit_v2_torch.ops import orb, pattern, pyramid, xla_math
+    from weiner_slamit_v2_torch.ops.patches import extract_patches
+    from weiner_slamit_v2_torch.ops.pattern import HALF_PATCH
+
+    frames = [((WORKLOAD["H"], WORKLOAD["W"]), img) for img in images]
+    for h, w in ((376, 1241), (480, 752)):
+        frames.append(((h, w), uint8(make_synthetic_sequence(n_frames=2, h=h, w=w, seed=5,
+                                                             motion="orbit").frames[1].image)))
+    differ = {}
+    for hw, img in frames:
+        ex = OrbExtractor(cfg.orb, hw)
+        cpu = torch.from_numpy(img)
+        card_lv = pyramid.build_pyramid(cpu.to(dev).float(), cfg.orb.n_levels, cfg.orb.scale_factor)
+        cpu_lv = pyramid.build_pyramid(cpu.float(), cfg.orb.n_levels, cfg.orb.scale_factor)
+        fc, fh = ex(cpu.to(dev)), ex(cpu)
+        d = differ.setdefault(f"{hw[1]}x{hw[0]}", dict(frames=0, pixels=0, keypoints=0, angles=0,
+                                                     descriptors=0))
+        d["frames"] += 1
+        d["pixels"] += sum(int((a.cpu() != b).sum()) for a, b in zip(card_lv, cpu_lv))
+        d["keypoints"] += int((fc.xy.cpu() != fh.xy).any(1).sum() + (fc.valid.cpu() != fh.valid).sum())
+        d["angles"] += int((fc.angle.cpu() != fh.angle).sum())
+        d["descriptors"] += int((fc.desc.cpu() != fh.desc).any(1).sum())
+    log(f"extract: the card against the CPU port, summed over the frames (pyramid pixels of all "
+        f"{cfg.orb.n_levels} levels, keypoint rows, angles, descriptor rows that differ): {json.dumps(differ)}")
+    check(all(v == 0 for d in differ.values() for k, v in d.items() if k != "frames"),
+          f"extract: the card's front end differs from the CPU port's: {differ}")
+
+    # times on the bench frame's pyramid and keypoints, beside the replaced forms
+    ex = OrbExtractor(cfg.orb, (WORKLOAD["H"], WORKLOAD["W"]))
+    img = torch.from_numpy(images[-1]).to(dev)
+    f = ex(img)
+    levels = pyramid.build_pyramid(img.float(), cfg.orb.n_levels, cfg.orb.scale_factor)
+    patches = torch.cat([extract_patches(levels[o], f.xy[f.octave == o] / float(ex.scales[o]), HALF_PATCH)
+                         for o in range(cfg.orb.n_levels)])
+    n = patches.shape[0]
+    disc = tuple(torch.from_numpy(a).to(dev) for a in pattern.orientation_disc())
+    m10 = (patches * 1.0).sum((1, 2))
+    m01 = (patches * 0.5).sum((1, 2))
+    ang = f.angle
+    pairs = {
+        "pyramid (8 levels)": (lambda: pyramid.build_pyramid(img.float(), cfg.orb.n_levels, cfg.orb.scale_factor),
+                               lambda: pyramid_fixed_forms(img.float(), cfg.orb.n_levels, cfg.orb.scale_factor)),
+        f"orientation ({n} patches)": (lambda: orb.patch_orientations(patches),
+                                       lambda: orientations_summed(patches, disc)),
+        f"atan2 ({n})": (lambda: xla_math.atan2(m01, m10), lambda: torch.atan2(m01, m10)),
+        f"sin+cos ({n})": (lambda: xla_math.sincos(ang), lambda: (torch.sin(ang), torch.cos(ang))),
+        "extract (one frame)": (lambda: ex(img), None),
+    }
+    for name, (exact, replaced) in pairs.items():
+        row = dict(host_ms=eager_ms(exact, reps=10), launches=kernel_launches(exact))
+        if name != "extract (one frame)":
+            row["device_ms"] = device_ms(exact, reps=10)
+        if replaced is not None:
+            row.update(replaced_host_ms=eager_ms(replaced, reps=10),
+                       replaced_device_ms=device_ms(replaced, reps=10),
+                       replaced_launches=kernel_launches(replaced))
+        log(f"extract timing {name}: {json.dumps(row)} (host: events around 10 calls issued from "
+            f"Python; device: a CUDA graph of 10 calls replayed) on {card}")
+
+
 def phase_extract(dev, card: str) -> dict:
-    """Phase 16: batched and sharded extraction of 8 full-width frames."""
+    """Phase 16: batched and sharded extraction of 8 full-width frames; the
+    exact front end on the card against the CPU port, and its times."""
     from weiner_slamit_v2_torch.frontend.extractor import OrbExtractor
     from weiner_slamit_v2_torch.parallel.data_parallel import batched_extract, sharded_extract
 
@@ -1590,7 +1720,9 @@ def phase_extract(dev, card: str) -> dict:
             f"kernel A launches {n}; {ms:.3f} ms host time synchronized (world size {mesh.world_size}) "
             f"on {card}")
     check(all(same and n == 8 for same, n, _ in out.values()), f"batched/sharded extraction {out}")
-    return read_launches()
+    launches = read_launches()
+    front_end_exact(dev, card, cfg, images)
+    return launches
 
 
 def phase_mapping_device(dev, card: str) -> dict:

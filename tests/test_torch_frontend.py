@@ -18,6 +18,7 @@ from weiner_slamit_v2_torch.config import OrbConfig
 from weiner_slamit_v2_torch.frontend import initializer, matcher
 from weiner_slamit_v2_torch.frontend.extractor import OrbExtractor
 from weiner_slamit_v2_torch.ops import pyramid
+from weiner_slamit_v2_torch.ops.resize_forms import SHIPPED_SIZES
 from weiner_slamit_v2_torch.slam_map.convert import features_from_numpy
 
 torch.set_num_threads(1)
@@ -28,15 +29,12 @@ def frame_u8(h, w, idx=1, seed=11, motion="orbit"):
     return np.clip(seq.frames[idx].image, 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("hw", [(192, 256), (240, 320)])
+@pytest.mark.parametrize("hw", SHIPPED_SIZES)
 def test_pyramid_levels(hw):
-    """Levels and blur against the jitted JAX pyramid. Level 0 and 1 are bit
-    exact. The reference's resize is an XLA:CPU dot whose summation form
-    (fused or not, which tap first) depends on the level's shape; the port
-    reproduces the form of the first resize exactly, deeper levels differ by
-    float32 rounding only: relative difference <= 1e-5 (rounding differences
-    of a few ulps compounded over the 7 chained resizes), on a minority of
-    pixels."""
+    """Levels and blur against the jitted JAX pyramid, bit for bit at all 8
+    levels of every image size the repo ships: each resize output sums its
+    two taps in the form XLA:CPU's dot gives it (ops/resize_forms.py), with
+    the weights its compiled weight loop computes (ops/pyramid.py)."""
     img = frame_u8(*hw)
 
     def jax_pyr(x):
@@ -45,32 +43,45 @@ def test_pyramid_levels(hw):
 
     jl, jb = jax.jit(jax_pyr)(jnp.asarray(img))
     tl = pyramid.build_pyramid(torch.from_numpy(img).float(), 8, 1.2)
-    for lvl, (a, b) in enumerate(zip(jl, tl)):
+    for a, b in zip(jl, tl):
         a, b = np.asarray(a), b.numpy()
         assert a.shape == b.shape
-        if lvl < 2:
-            np.testing.assert_array_equal(b, a)
-        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
-        assert (a == b).mean() > 0.8
+        np.testing.assert_array_equal(b, a)
     # the blur on identical input is bit exact (fused multiply-add chain)
     for a, lvl in zip(jb, jl):
         b = pyramid.gaussian_blur(torch.from_numpy(np.asarray(lvl))).numpy()
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
-@pytest.mark.parametrize("hw", [(192, 256), (240, 320)])
+@pytest.mark.parametrize("hw", SHIPPED_SIZES)
 def test_extractor_exact(hw):
-    img = frame_u8(*hw)
-    fj = JOrbExtractor(JOrbConfig(n_features=256), hw, use_pallas=False)(jnp.asarray(img))
-    ft = OrbExtractor(OrbConfig(n_features=256), hw)(torch.from_numpy(img))
-    np.testing.assert_array_equal(ft.xy.numpy(), np.asarray(fj.xy))
-    np.testing.assert_array_equal(ft.octave.numpy(), np.asarray(fj.octave))
-    np.testing.assert_array_equal(ft.valid.numpy(), np.asarray(fj.valid))
-    np.testing.assert_array_equal(ft.desc.numpy(), np.asarray(fj.desc).view(np.int32))
-    # angles: intensity-centroid sums taken in another order on non-integer
-    # levels, then another library's atan2; the descriptors above are exact
-    np.testing.assert_allclose(ft.angle.numpy(), np.asarray(fj.angle), rtol=0, atol=1e-4)
-    assert int(ft.valid.sum()) > 150
+    """Four frames through the program the JAX tracker compiles (extraction
+    and undistortion in one jit, tracking/tracker.py make_extract): keypoints,
+    angles and descriptors bit for bit (the moments summed in XLA:CPU's
+    order, atan2/sin/cos as ops/xla_math.py)."""
+    h, w = hw
+    n_features = 256 if h <= 240 else 1024
+    cam = JCamera.create(500.0, 500.0, w / 2 - 0.5, h / 2 - 0.5, width=w, height=h)
+    jex = JOrbExtractor(JOrbConfig(n_features=n_features), hw, use_pallas=False)
+
+    def extract(img):
+        f = jex._extract_impl(img)
+        return f.replace(xy_und=cam.undistort_points(f.xy))
+
+    extract = jax.jit(extract)
+    tex = OrbExtractor(OrbConfig(n_features=n_features), hw)
+    seq = make_synthetic_sequence(n_frames=4, h=h, w=w, seed=11, motion="orbit")
+    for fr in seq.frames:
+        img = np.clip(fr.image, 0, 255).astype(np.uint8)
+        fj = extract(jnp.asarray(img))
+        ft = tex(torch.from_numpy(img))
+        np.testing.assert_array_equal(ft.xy.numpy(), np.asarray(fj.xy))
+        np.testing.assert_array_equal(ft.octave.numpy(), np.asarray(fj.octave))
+        np.testing.assert_array_equal(ft.valid.numpy(), np.asarray(fj.valid))
+        np.testing.assert_array_equal(ft.response.numpy(), np.asarray(fj.response))
+        np.testing.assert_array_equal(ft.angle.numpy(), np.asarray(fj.angle))
+        np.testing.assert_array_equal(ft.desc.numpy(), np.asarray(fj.desc).view(np.int32))
+        assert int(ft.valid.sum()) > 150
 
 
 @pytest.fixture(scope="module")
@@ -139,5 +150,10 @@ def test_initialize_two_view_with_jax_draws(jax_pair):
         torch.from_numpy(np.asarray(draws)), sigma2=torch.from_numpy(sigma2))
     assert bool(rj.success) and bool(rt.success)
     assert bool(rj.used_homography) == bool(rt.used_homography)
+    # not exact: the DLT and decomposition SVDs are LAPACK's in JAX and
+    # torch's own here (cuSOLVER on the card), and they part by ulps on the
+    # same matrix; measured on this input: Tcw2 within 1.8e-6, is_point
+    # equal everywhere (tools/first_divergence_torch.py: a session's first
+    # divergence)
     np.testing.assert_allclose(rt.Tcw2.numpy(), np.asarray(rj.Tcw2), atol=1e-4)
     assert (rt.is_point.numpy() == np.asarray(rj.is_point)).mean() >= 0.99

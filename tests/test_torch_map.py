@@ -102,6 +102,9 @@ def test_optimize_pose_matches_jax():
     Tj, inl_j, n_j = j_optimize_pose(*[jnp.asarray(a) for a in args], lambda_init=1e-4)
     Tt, inl_t, n_t = optimize_pose(*[torch.from_numpy(np.asarray(a)) for a in args],
                                    lambda_init=1e-4)
+    # not exact: the normal equations' sums and the 6x6 solve round in
+    # another order than the JAX program's (unrolled Cholesky); measured on
+    # this input: 11 of the 16 entries differ, by at most 6.0e-8
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
     np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert int(n_t) == int(n_j) > 200
@@ -109,10 +112,11 @@ def test_optimize_pose_matches_jax():
 
 def test_mapping_step_matches_jax(jax_snapshot):
     """One local-mapping pass on the same map. Integer planes must agree on
-    >= 99.5% of entries (on this snapshot they agree on all of them); any
-    rest would come from float-threshold flips: the chi2 / epipolar /
-    parallax gates and the BA outlier classification evaluated with other
-    summation orders. Keyframe poses after BA agree to 1e-3 (5e-5 seen)."""
+    >= 99.5% of entries (measured: all of them, and n_mp equal); any rest
+    would come from float-threshold flips: the chi2 / epipolar / parallax
+    gates and the BA outlier classification evaluated with other summation
+    orders, which are not reproduced. Keyframe poses after BA agree to 1e-3
+    (measured: 5.5e-5)."""
     arrays, kf, ref, consts = jax_snapshot
     cfg = small_config(tconfig)
     Kt, sf, s2, is2 = (torch.from_numpy(a) for a in consts)

@@ -155,6 +155,8 @@ def test_reloc_program_matches_jax():
     assert int(ng_j[0]) >= 50 and ng_t[0] >= 50, (int(ng_j[0]), ng_t[0])
     np.testing.assert_allclose(T_t[0].numpy(), np.asarray(T_j[0]), atol=1e-3)
     np.testing.assert_allclose(T_t[0].numpy(), T_fr, atol=1e-2)
+    # not exact (the pose LMs round in another order); measured: every
+    # observation equal, the pose within 6.0e-8
     agree = (obs_t[0].numpy() == np.asarray(obs_j[0])).mean()
     assert agree >= 0.99, agree
 

@@ -82,6 +82,9 @@ def test_same_initialization_frame_and_no_loss(runs):
 
 
 def test_keyframe_counts_close(runs):
+    """The sessions part at the initialization (frame 2: its SVDs are
+    LAPACK's in JAX and torch's here; tools/first_divergence_torch.py
+    lists every stage). Measured: 8 keyframes created and 6 valid in both."""
     _, (jsys, _), (tsys, _) = runs
     assert abs(tsys.tracker.n_kf_host - jsys.tracker.n_kf_host) <= 2
     assert abs(tsys.n_keyframes() - jsys.n_keyframes()) <= 2
@@ -94,6 +97,7 @@ def test_trajectory_accuracy_close(runs):
     for sys_ in (jsys, tsys):
         _, Twc = sys_.tracker.trajectory_Twc()
         ates.append(ate_rmse(Twc, seq.gt_Twc[-len(Twc):]))
+    # measured: 0.0233 m (JAX) and 0.0182 m (port)
     assert ates[0] < 0.06 and ates[1] < 0.06, ates
     assert abs(ates[1] - ates[0]) < 0.02, ates
 

@@ -84,7 +84,10 @@ def test_ba_stages_match_jax(snapshot):
     inlier classifications on >= 99.5 % of observations, the damping after
     the robust phase exactly (x0.5 / x8 per accepted / refused step). Not
     after the refinement: near the minimum, an accept test decides on cost
-    differences of a few ulps, so the two packages' damping may part there."""
+    differences of a few ulps, so the two packages' damping may part there.
+    Not exact (the BA's sums are not in XLA's order); measured: every
+    inlier classification equal (961 observations), poses within 3.5e-5,
+    points within 3.0e-4."""
     *_, jprob = snapshot
     tprob = port_problem(jprob)
     jc, jp, jl, ji = jba.ba_phase1(jprob, n_iters=5)

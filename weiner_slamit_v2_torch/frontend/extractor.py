@@ -18,7 +18,8 @@ import torch
 from ..config import OrbConfig
 from ..ops import orb, pyramid, topk_grid
 from ..ops.fast_kernel import fast_score_nms_levels
-from ..ops.pattern import EDGE_MARGIN
+from ..ops.pattern import EDGE_MARGIN, HALF_PATCH
+from ..ops.patches import extract_patches
 
 
 @dataclass
@@ -83,7 +84,7 @@ class OrbExtractor:
         # applies the low threshold itself (NMS commutes with a monotone
         # threshold)
         scores = fast_score_nms_levels([levels[lvl].contiguous() for lvl in used])
-        parts = []
+        parts, ori_patches, brief_patches = [], [], []
         for lvl, score in zip(used, scores):
             img, budget = levels[lvl], self.budgets[lvl]
             xy, resp, valid = topk_grid.select_keypoints(
@@ -91,11 +92,15 @@ class OrbExtractor:
                 high_threshold=cfg.fast_threshold, low_threshold=cfg.fast_min_threshold,
                 margin=EDGE_MARGIN,
             )
-            ang = orb.orientations(img, xy)
-            desc = orb.brief_descriptors(pyramid.gaussian_blur(img), xy, ang)
+            ori_patches.append(extract_patches(img, xy, HALF_PATCH))
+            brief_patches.append(extract_patches(pyramid.gaussian_blur(img), xy, HALF_PATCH))
             octv = torch.full((budget,), lvl, dtype=torch.int32, device=img.device)
-            parts.append((xy * float(self.scales[lvl]), resp, ang, octv, desc, valid))
-        xy, resp, ang, octv, desc, valid = (torch.cat(p) for p in zip(*parts))
+            parts.append((xy * float(self.scales[lvl]), resp, octv, valid))
+        # orientation and BRIEF of every level at once (each keypoint's
+        # result depends on its own patch alone)
+        ang = orb.patch_orientations(torch.cat(ori_patches))
+        desc = orb.patch_descriptors(torch.cat(brief_patches), ang)
+        xy, resp, octv, valid = (torch.cat(p) for p in zip(*parts))
         return FrameFeatures(xy=xy, xy_und=xy, response=resp, angle=ang,
                              octave=octv, desc=desc, valid=valid)
 

@@ -3,18 +3,22 @@ ORBextractor::ComputePyramid, src/ORBextractor.cc:1138-1168, and the 7x7
 sigma=2 blur of src/ORBextractor.cc:1117).
 
 FAST compares exact pixel differences, so one ulp in a pyramid level moves
-keypoints. Both operations therefore reproduce the reference's float32
-arithmetic operation for operation instead of calling ``F.interpolate`` or a
-convolution (which would also run through cuDNN/TF32 on the card):
+keypoints. Both operations therefore reproduce the reference's compiled
+float32 arithmetic operation for operation instead of calling
+``F.interpolate`` or a convolution (which would also run through
+cuDNN/TF32 on the card), and every level of every image size the repo
+ships is bit-equal to it (tests/test_torch_frontend.py::test_pyramid_levels):
 
-* resize: ``jax.image.resize(linear, antialias=False)`` is two contractions
-  with half-pixel triangle weights (rows first, then columns). Each output
-  sample has two taps. The row pass evaluates ``fma(w1, x1, w0 * x0)``, the
-  column pass ``w0 * x0 + w1 * x1`` with three roundings; the sample
-  coordinate is ``fma(i + 0.5, in/out, -0.5)``. These are the forms
-  XLA:CPU's dot takes for the first resize; for some deeper level shapes it
-  sums otherwise and the levels differ by a few ulps
-  (tests/test_torch_frontend.py::test_pyramid_levels).
+* resize: ``jax.image.resize(linear, antialias=False)`` is two dots with
+  half-pixel triangle weights (rows first, then columns). The weights are
+  computed as the compiled weight loop computes them: the sample coordinate
+  ``(j + 0.5) * (m / n) - 0.5`` is one fused multiply-add where the loop
+  runs, a rounded product and a rounded difference where LLVM unrolled it
+  and folded the constant (``_sample_coords``). Each output has two
+  nonzero taps, summed in the form XLA:CPU's GEMM library gives it: the
+  chain ``fma(w1, x1, w0 * x0)`` or the rounded sum ``w0 * x0 + w1 * x1``,
+  per output, from the measured table of ops/resize_forms.py (the form
+  depends on the library's blocking of each dot, not on (m, n) alone).
 * blur: separable, reflect-101 border, ordered shifted multiply-adds:
   ``fma(k0, x0, k1 * x1)``, then ``acc = fma(k[i], x[i], acc)``.
 """
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import resize_forms
 from ..util import device_const, fma
 
 
@@ -43,13 +48,31 @@ def scale_factors(n_levels: int, scale_factor: float) -> np.ndarray:
     return np.asarray([scale_factor**l for l in range(n_levels)], dtype=np.float32)
 
 
+# The compiled weight loop runs 8 lanes wide. LLVM unrolls it fully up to 11
+# vector iterations (n < 96), and always unrolls the scalar remainder; an
+# unrolled iteration's sample coordinate is a constant, folded as a rounded
+# product then a rounded difference. The other iterations run, and compute
+# it as one fused multiply-add.
+_LANES = 8
+_UNROLLED_BELOW = 96
+
+
+def _sample_coords(m: int, n: int) -> np.ndarray:
+    """(n,) float32 sample coordinates ``(j + 0.5) * (m / n) - 0.5`` as the
+    reference's compiled weight computation evaluates each."""
+    inv = np.float32(1.0 / (n / m))
+    base = np.arange(n, dtype=np.float32) + np.float32(0.5)
+    fused = (base.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
+    folded = base * inv - np.float32(0.5)
+    j = np.arange(n)
+    return np.where((n < _UNROLLED_BELOW) | (j >= n // _LANES * _LANES), folded, fused)
+
+
 @functools.lru_cache(maxsize=None)
 def _taps(m: int, n: int):
     """Two-tap linear resize weights for one axis, size m -> n, computed as
     jax.image.resize computes its weight matrix (float32 throughout)."""
-    inv = np.float32(1.0 / (n / m))
-    base = np.arange(n, dtype=np.float32) + np.float32(0.5)
-    sf = (base.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
+    sf = _sample_coords(m, n)
     x = np.abs(sf[None, :] - np.arange(m, dtype=np.float32)[:, None])
     w = np.maximum(np.float32(0.0), np.float32(1.0) - x).astype(np.float32)
     tot = w.sum(axis=0, keepdims=True, dtype=np.float32)
@@ -70,18 +93,30 @@ def _taps(m: int, n: int):
     return i0, i1, w0, w1
 
 
-def resize_linear(image: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """(H, W) float32 -> shape, bit-compatible with the reference's resize."""
-    h, w = image.shape
-    dev = image.device
-    def taps(m, n):
-        return device_const(("resize_taps", m, n), dev,
-                            lambda d: tuple(torch.from_numpy(a).to(d) for a in _taps(m, n)))
+def _pass_consts(axis: int, m: int, n: int, other: int, device) -> tuple[torch.Tensor, ...]:
+    """Tap indices, weights and chain-form mask of one resize pass."""
+    def make(d):
+        i0, i1, w0, w1 = _taps(m, n)
+        chain = resize_forms.chain_mask(axis, m, n, other)
+        return tuple(torch.from_numpy(a).to(d) for a in (i0, i1, w0, w1, chain))
+    return device_const(("resize_pass", axis, m, n, other), device, make)
 
-    i0, i1, w0, w1 = taps(h, shape[0])
-    rows = fma(w1[:, None], image[i1], image[i0] * w0[:, None])
-    i0, i1, w0, w1 = taps(w, shape[1])
-    return rows[:, i0] * w0 + rows[:, i1] * w1
+
+def _two_taps(x0, x1, w0, w1, chain) -> torch.Tensor:
+    """Each output's two taps in the form its pass gives it: the chain
+    ``fma(w1, x1, w0 * x0)`` or the rounded sum ``w0 * x0 + w1 * x1``."""
+    p0 = x0 * w0
+    return torch.where(chain, fma(w1, x1, p0), p0 + x1 * w1)
+
+
+def resize_linear(image: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """(H, W) float32 -> shape, bit-equal to the reference's resize at the
+    sizes ``resize_forms.FORMS`` holds."""
+    h, w = image.shape
+    i0, i1, w0, w1, chain = _pass_consts(0, h, shape[0], w, image.device)
+    rows = _two_taps(image[i0], image[i1], w0[:, None], w1[:, None], chain[:, None])
+    i0, i1, w0, w1, chain = _pass_consts(1, w, shape[1], shape[0], image.device)
+    return _two_taps(rows[:, i0], rows[:, i1], w0, w1, chain)
 
 
 def build_pyramid(image: torch.Tensor, n_levels: int = 8, scale_factor: float = 1.2) -> list[torch.Tensor]:
