@@ -135,9 +135,23 @@ Phases (each failure ends the run with a non-zero exit code):
      undistortion of the last frame's keypoints equal to the CPU's, and
      kernel A equal to its plain version on a distorted frame; prints
      ms/frame beside phase 5's.
-The kernel launch counts of phases 5, 7-17, 20 and of each run of phase 19 are
-each read from zero. With phase numbers as arguments (``python3
-chip_smoke.py 9 10``) only those of phases 7-20 run, after phases 1-6
+ 21. the fed-stage audit, card against CPU (tools/fed_stages_torch.py): the
+     port's own session on the CPU over the bench orbit at the bench
+     geometry (abortable_ba=False), every stage's inputs and outputs
+     recorded on every frame, and each stage run on the card on those same
+     inputs (each frame's extraction too, against the CPU's): motion match, pose LM 1, local map, pose LM 2, the counters and
+     keyframe decision, keyframe creation with its BoW registration, the
+     mapping pass before the BA, the BA, the write-back. Asserts 0 integer
+     entries differing in every stage on every frame (stages 1-6 by the
+     port's contract; 7-9 within the bound the CPU audit measured for the
+     port against JAX, 0) and prints each stage's largest float difference
+     in ulps. Then optimize_pose at 1024 matches: device time, host time and
+     launches as the port runs it (the iteration's exact tail replayed as a
+     CUDA graph), eagerly, and eagerly with the library Cholesky solve it
+     replaced (kept in this file); the graph's pose equals the eager one.
+The kernel launch counts of phases 5, 7-17, 20, 21 and of each run of phase 19
+are each read from zero. With phase numbers as arguments (``python3
+chip_smoke.py 9 10``) only those of phases 7-21 run, after phases 1-6
 (phase 14 brings phase 12 with it).
 Prints one line per kernel (v1 time, time, plain time, bound, share), a JSON
 line of kernel results (launches: summed over the phases that ran in this
@@ -169,6 +183,8 @@ RESET_FRAMES = 45                                             # phase 8
 # to keep the whole script well inside its time limit (PERF.md section 4)
 POSENET_FRAMES = 30       # phase 15: the first quarter of phase 5's run
 LENS_FRAMES = 100         # phase 20: the bench orbit through the Pixel-4 lens
+FED_FRAMES = 30           # phase 21: the fed-stage audit's CPU session
+POSE_MATCHES = 1024       # phase 21: optimize_pose's problem size (the feature budget)
 # phase 19: bench.py's TrackingConfig(mapping_latency_frames=8,
 # frames_per_sync=4) (bench.py:66) over phase 7's frames and covered lens;
 # the ms/frame window; the JAX package's pipelined ATE bound
@@ -1610,8 +1626,8 @@ def orientations_summed(patches: torch.Tensor, disc) -> torch.Tensor:
     return torch.atan2((masked * ys).sum((1, 2)), (masked * xs).sum((1, 2)))
 
 
-def kernel_launches(fn) -> int:
-    """CUDA kernels one fn() launches (torch.profiler's trace of the runtime)."""
+def runtime_launches(fn) -> dict:
+    """Kernel launches and CUDA graph launches of one fn() (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1619,8 +1635,14 @@ def kernel_launches(fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC")
-               for e in prof.profiler.kineto_results.events())
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    return {"kernels": sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC") for n in names),
+            "graphs": sum(n == "cudaGraphLaunch" for n in names)}
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels one fn() launches (torch.profiler's trace of the runtime)."""
+    return runtime_launches(fn)["kernels"]
 
 
 def front_end_exact(dev, card: str, cfg, images) -> None:
@@ -1794,7 +1816,7 @@ def sync_calls(feed, label: str, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
-             "cudaMemcpyAsync", "cudaLaunchKernel")
+             "cudaMemcpyAsync", "cudaLaunchKernel", "cudaGraphLaunch")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2095,6 +2117,140 @@ def phase_lens(dev, card: str) -> dict:
     return launches
 
 
+def fed_tool():
+    """tools/fed_stages_torch.py (imports no JAX at module level)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "fed_stages_torch.py")
+    spec = importlib.util.spec_from_file_location("fed_stages_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def solve6_library(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The port's solve6 before the exact one: LAPACK / cuSOLVER Cholesky."""
+    L, _ = torch.linalg.cholesky_ex(A)
+    return torch.cholesky_solve(b[:, None], L)[:, 0]
+
+
+def pose_problem(n: int, dev):
+    """optimize_pose's inputs at n matches: points 3-8 m ahead, their
+    projections at the bench intrinsics with 0.7 px noise, 5 % outliers,
+    octaves 0-3, a start 5 cm and 0.5 degree off."""
+    from weiner_slamit_v2_torch.geometry import se3
+
+    rng = np.random.default_rng(5)
+    f, cx, cy = WORKLOAD["f"], WORKLOAD["W"] / 2, WORKLOAD["H"] / 2
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(3, 8, n)], 1).astype(np.float32)
+    uv = X[:, :2] / X[:, 2:] * f + np.array([cx, cy]) + rng.normal(0, 0.7, (n, 2))
+    out = rng.random(n) < 0.05
+    uv[out] += rng.uniform(-40, 40, (int(out.sum()), 2))
+    inv_s2 = (1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32)
+    K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
+    T0 = se3.exp(torch.tensor([0.05, 0.0, 0.03, 0.008, -0.004, 0.002]))
+    return [T0.to(dev), torch.from_numpy(X).to(dev), torch.from_numpy(uv.astype(np.float32)).to(dev),
+            torch.from_numpy(inv_s2).to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+            torch.from_numpy(K).to(dev)]
+
+
+def time_optimize_pose(dev, card: str) -> dict:
+    """optimize_pose at POSE_MATCHES matches as the port runs it (solve6, the
+    iteration's tail replayed as a CUDA graph), eagerly, and eagerly with the
+    library solve it replaced: host time (events around 100 calls from
+    Python; 10 for the eager forms, ~0.5 s a call), launches, device time (a
+    graph of 2 calls; the eager forms only: a graph being captured cannot
+    replay the tail's graph, whose kernels are the eager form's); the poses
+    they reach."""
+    from weiner_slamit_v2_torch.optim import pose_opt
+
+    args = pose_problem(POSE_MATCHES, dev)
+    exact, rows = pose_opt.solve6, {}
+    for name, solve, graph, reps in (("solve6, tail graph", exact, True, 100),
+                                     ("solve6, eager", exact, False, 10),
+                                     ("library Cholesky, eager", solve6_library, False, 10)):
+        pose_opt.solve6, pose_opt.CUDA_GRAPH_TAIL = solve, graph
+        try:
+            fn = lambda: pose_opt.optimize_pose(*args)   # noqa: E731
+            T, inl, n = fn()
+            row = dict(host_ms=eager_ms(fn, reps=reps, loops=1), launches=runtime_launches(fn),
+                       inliers=int(n))
+            if not graph:
+                row["device_ms"] = device_ms(fn, reps=2, loops=3)
+            rows[name] = (row, T.cpu())
+        finally:
+            pose_opt.solve6, pose_opt.CUDA_GRAPH_TAIL = exact, True
+        log(f"fed: optimize_pose at {POSE_MATCHES} matches (4 x 10 LM iterations), {name}: "
+            f"{json.dumps(row)} on {card}")
+    T0 = rows["solve6, tail graph"][1]
+    log(f"fed: the poses' largest difference from the graph's: " + json.dumps(
+        {k: float((T - T0).abs().max()) for k, (_, T) in rows.items()}))
+    a = rows["solve6, tail graph"][0]
+    check(a["inliers"] > 0.8 * POSE_MATCHES and bool(torch.isfinite(T0).all()), str(a))
+    check(torch.equal(rows["solve6, eager"][1], T0), "fed: the graph's pose differs from the eager one")
+    return a
+
+
+def phase_fed(dev, card: str) -> dict:
+    """Phase 21: every stage of the port's CPU session fed, frame by frame,
+    to the same stage on the card; optimize_pose's times."""
+    from weiner_slamit_v2_torch.tracking.system import System
+
+    from types import SimpleNamespace
+
+    from weiner_slamit_v2_torch.tracking.tracker import Tracker
+
+    fed = fed_tool()
+    cfg, cam, seq, images = workload(FED_FRAMES, abortable_ba=False)
+    sys_ = System(cfg, cam, device="cpu")
+    frames = [SimpleNamespace(image=img, timestamp=fr.timestamp) for img, fr in zip(images, seq.frames)]
+    rows, states, t_card = [], [], [0.0]
+    # the extraction that feeds stage 1, on the card against the CPU session's
+    card_tracker, cpu_extract, extract_differ = Tracker(cfg, cam, device=dev), sys_.tracker._extract, [0]
+
+    def extract(image, initializing):
+        f = cpu_extract(image, initializing)
+        g = card_tracker._extract(image.to(dev), initializing)
+        extract_differ[0] += sum(int((getattr(f, k) != getattr(g, k).cpu()).sum()) for k in (
+            "xy", "xy_und", "response", "angle", "octave", "desc", "valid"))
+        return f
+
+    sys_.tracker._extract = extract
+    reset_launches()
+
+    def on_record(rec):
+        t0 = time.perf_counter()
+        rows.append(fed.audit_frame(rec, cfg, dev))
+        torch.cuda.synchronize()
+        t_card[0] += time.perf_counter() - t0
+        states.append(rec["state"])
+
+    t0 = time.perf_counter()
+    try:
+        fed.record_port_session(sys_, frames, on_record)
+    finally:
+        del sys_.tracker._extract
+    launches = read_launches()
+    log(f"fed: the CPU session and the card's stages over {FED_FRAMES} bench frames in "
+        f"{time.perf_counter() - t0:.1f} s (the card's stages {t_card[0]:.1f} s); states "
+        f"{''.join(s[0] for s in states)}; feature entries of the card's extraction that differ "
+        f"from the CPU's {extract_differ[0]}; launches {launches}")
+    for line in fed.summary(rows):
+        log(f"fed: {line}")
+    differ = {(i, st): r["keys"] for i, row in enumerate(rows) for st, r in row.items() if r["int"]}
+    check(not differ, f"fed: integer outputs of the card differ from the CPU's: {differ}")
+    init = next((i for i, st in enumerate(states) if st == "OK"), None)
+    check(init is not None and all(st == "OK" for st in states[init:]), f"fed: states {states}")
+    ran = {st: sum(1 for r in rows if st in r) for st in fed.STAGES}
+    check(all(ran[st] > 0 for st in fed.STAGES), f"fed: a stage never ran: {ran}")
+    check(extract_differ[0] == 0, f"fed: the card's features differ from the CPU's: {extract_differ[0]}")
+    check(launches["fast_score_nms"] == FED_FRAMES and launches["windowed_best2"] == ran["mapping pre"],
+          f"fed: kernel A once per frame, B once per fed mapping pass: {launches}, {ran}")
+    time_optimize_pose(dev, card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2122,7 +2278,7 @@ def main() -> int:
                   .frames[1].image)
     kern_a = phase_kernel_a(frame, dev)
     phase_kernel_b(dev)
-    want = {int(a) for a in sys.argv[1:]} or set(range(7, 21))
+    want = {int(a) for a in sys.argv[1:]} or set(range(7, 22))
     if 14 in want:
         want.add(12)   # phase 14 runs on phase 12's map
     launches, captured = phase_slice(dev, card)
@@ -2132,7 +2288,8 @@ def main() -> int:
              (12, "loop", phase_loop), (13, "stereo_loop", phase_stereo_loop),
              (14, "distributed_gba", phase_gba), (15, "posenet", phase_posenet),
              (16, "extract", phase_extract), (17, "mapping_device", phase_mapping_device),
-             (18, "cli", phase_cli), (19, "pipelined", phase_pipelined), (20, "lens", phase_lens)]
+             (18, "cli", phase_cli), (19, "pipelined", phase_pipelined), (20, "lens", phase_lens),
+             (21, "fed", phase_fed)]
     by_path = {"slice": launches}
     for num, name, phase in paths:
         if num in want:

@@ -25,6 +25,13 @@ from weiner_slamit_v2_torch.tracking.local_mapping import mapping_step
 torch.set_num_threads(1)
 
 H, W = 240, 320
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest float32 distance in ulps between a and b."""
+    ia, ib = (np.asarray(x, np.float32).view(np.int32).astype(np.int64) for x in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int(np.abs(ia - ib).max()) if ia.size else 0
 K = np.array([[300.0, 0, 159.5], [0, 300.0, 119.5], [0, 0, 1]], np.float32)
 
 
@@ -102,31 +109,32 @@ def test_optimize_pose_matches_jax():
     Tj, inl_j, n_j = j_optimize_pose(*[jnp.asarray(a) for a in args], lambda_init=1e-4)
     Tt, inl_t, n_t = optimize_pose(*[torch.from_numpy(np.asarray(a)) for a in args],
                                    lambda_init=1e-4)
-    # not exact: the normal equations' sums and the 6x6 solve round in
-    # another order than the JAX program's (unrolled Cholesky); measured on
-    # this input: 11 of the 16 entries differ, by at most 6.0e-8
-    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-4)
+    # not exact: the normal equations' sums (XLA's dot emitter) round in
+    # another order; the damping, the 6x6 solve and the update are JAX's
+    # (tests/test_torch_pose_solve.py). Measured on this input: 9 of the 16
+    # entries differ, by at most 22 ulp (1.64e-7)
+    Tt, Tj = Tt.numpy(), np.asarray(Tj)
+    differ = Tt != Tj
+    assert ulps(Tt[differ], Tj[differ]) <= 22, (Tt, Tj)
     np.testing.assert_array_equal(inl_t.numpy(), np.asarray(inl_j))
     assert int(n_t) == int(n_j) > 200
 
 
 def test_mapping_step_matches_jax(jax_snapshot):
-    """One local-mapping pass on the same map. Integer planes must agree on
-    >= 99.5% of entries (measured: all of them, and n_mp equal); any rest
-    would come from float-threshold flips: the chi2 / epipolar / parallax
-    gates and the BA outlier classification evaluated with other summation
-    orders, which are not reproduced. Keyframe poses after BA agree to 1e-3
-    (measured: 5.5e-5)."""
+    """One local-mapping pass on the same map. Integer planes equal: no
+    float gate (chi2, epipolar, parallax, the BA's outlier classification)
+    flips on this pass, as the fed-stage audit finds on every pass of the
+    slice session (tests/test_torch_fed_stages.py). Keyframe poses after BA
+    agree to 5e-5 (measured: 4.34e-5; the BA's sums are not XLA's order)."""
     arrays, kf, ref, consts = jax_snapshot
     cfg = small_config(tconfig)
     Kt, sf, s2, is2 = (torch.from_numpy(a) for a in consts)
     out = map_to_numpy(mapping_step(map_from_numpy(arrays, device="cpu"), kf, Kt, sf, s2, is2, cfg))
     for name in ("kf_obs", "mp_valid", "kf_valid"):
-        agree = (out[name] == ref[name]).mean()
-        assert agree >= 0.995, (name, agree)
-    assert out["n_mp"] == ref["n_mp"] or abs(int(out["n_mp"]) - int(ref["n_mp"])) <= 0.02 * int(ref["n_mp"])
+        np.testing.assert_array_equal(out[name], ref[name], err_msg=name)
+    assert out["n_mp"] == ref["n_mp"]
     valid = ref["kf_valid"] & out["kf_valid"]
-    np.testing.assert_allclose(out["kf_pose"][valid], ref["kf_pose"][valid], atol=1e-3)
+    np.testing.assert_allclose(out["kf_pose"][valid], ref["kf_pose"][valid], atol=5e-5)
     # the pass did real work: new points and a moved pose
     assert int(ref["n_mp"]) > int(arrays["n_mp"])
     assert not np.array_equal(ref["kf_pose"][kf], arrays["kf_pose"][kf])

@@ -155,16 +155,16 @@ def test_reloc_program_matches_jax():
     assert int(ng_j[0]) >= 50 and ng_t[0] >= 50, (int(ng_j[0]), ng_t[0])
     np.testing.assert_allclose(T_t[0].numpy(), np.asarray(T_j[0]), atol=1e-3)
     np.testing.assert_allclose(T_t[0].numpy(), T_fr, atol=1e-2)
-    # not exact (the pose LMs round in another order); measured: every
-    # observation equal, the pose within 6.0e-8
-    agree = (obs_t[0].numpy() == np.asarray(obs_j[0])).mean()
-    assert agree >= 0.99, agree
+    # the observations equal; the pose not exactly (the pose LMs' normal
+    # equations sum in another order than XLA's dots): measured within 6.0e-8
+    np.testing.assert_array_equal(obs_t[0].numpy(), np.asarray(obs_j[0]))
+    assert ng_t[0] == int(ng_j[0])
 
 
 def test_tracker_relocalize_matches_jax():
     """Tracker._relocalize on the same map (no vocabulary yet: every
     keyframe is a candidate by descriptor matches): OK in both, the same
-    inlier count within 2 and the same pose within 1e-3."""
+    inlier count and the same pose within 1e-3."""
     cfg, m, feats, Km, _ = staged_reloc_setup()
     jt = jtracker.Tracker(cfg, JCamera.create(300.0, 300.0, 160.0, 120.0, width=W, height=H))
     jt.m, jt.n_kf_host, jt.ref_kf, jt.state, jt.frame_id = m, 1, 0, jtracker.LOST, 5
@@ -180,7 +180,7 @@ def test_tracker_relocalize_matches_jax():
     tt.K = torch.from_numpy(Km)
     t_out = tt._relocalize(tf, 0.5)
     assert j_out.state == t_out.state == "OK"
-    assert abs(j_out.n_inliers - t_out.n_inliers) <= 2 and t_out.n_inliers >= 50
+    assert j_out.n_inliers == t_out.n_inliers and t_out.n_inliers >= 50
     np.testing.assert_allclose(t_out.Tcw.numpy(), np.asarray(j_out.Tcw), atol=1e-3)
     assert tt.last_reloc_frame == 5 and tt.velocity is None
     assert tt.last_reloc_attempt["candidates"] == [0]

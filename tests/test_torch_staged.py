@@ -81,19 +81,20 @@ def port_problem(jprob) -> tba.BAProblem:
 def test_ba_stages_match_jax(snapshot):
     """phase 1 -> two 5-iteration chunks -> finalize on the same problem.
     Poses and points agree to 1e-3 (test_torch_map's BA tolerance), the
-    inlier classifications on >= 99.5 % of observations, the damping after
-    the robust phase exactly (x0.5 / x8 per accepted / refused step). Not
-    after the refinement: near the minimum, an accept test decides on cost
-    differences of a few ulps, so the two packages' damping may part there.
-    Not exact (the BA's sums are not in XLA's order); measured: every
-    inlier classification equal (961 observations), poses within 3.5e-5,
+    inlier classifications equal (961 observations; no chi2 gate flips,
+    as on every BA of the fed-stage audit, tests/test_torch_fed_stages.py),
+    the damping after the robust phase exactly (x0.5 / x8 per accepted /
+    refused step). Not after the refinement: near the minimum, an accept
+    test decides on cost differences of a few ulps, so the two packages'
+    damping may part there (it does here: 2.62 against 0.164). Not exact
+    (the BA's sums are not in XLA's order); measured: poses within 3.5e-5,
     points within 3.0e-4."""
     *_, jprob = snapshot
     tprob = port_problem(jprob)
     jc, jp, jl, ji = jba.ba_phase1(jprob, n_iters=5)
     tc, tp, tl, ti = tba.ba_phase1(tprob, n_iters=5)
     valid = np.asarray(jprob.obs_valid)
-    assert (ti.numpy() == np.asarray(ji))[valid].mean() >= 0.995
+    np.testing.assert_array_equal(ti.numpy()[valid], np.asarray(ji)[valid])
     assert float(tl) == pytest.approx(float(jl), rel=1e-6)
     tl, jl = tba.BA_LAMBDA_INIT, jnp.asarray(jba.BA_LAMBDA_INIT)
     for _ in range(2):
@@ -104,7 +105,7 @@ def test_ba_stages_match_jax(snapshot):
     np.testing.assert_allclose(tr.cam_pose.numpy()[cams], np.asarray(jr.cam_pose)[cams], atol=1e-3)
     pts = np.asarray(jprob.point_valid)
     np.testing.assert_allclose(tr.points.numpy()[pts], np.asarray(jr.points)[pts], atol=1e-3)
-    assert (tr.obs_inlier.numpy() == np.asarray(jr.obs_inlier))[valid].mean() >= 0.995
+    np.testing.assert_array_equal(tr.obs_inlier.numpy()[valid], np.asarray(jr.obs_inlier)[valid])
     assert float(tr.final_cost) == pytest.approx(float(jr.final_cost), rel=1e-3)
 
 

@@ -19,11 +19,13 @@ frame's stages:
     map           the map after the frame: keyframe and point planes, poses
                   and positions (initialization, mapping passes, counters)
 
-A stage differs when an integer plane has an entry that differs or a float
-plane a value that differs; a float's difference is given in ulps (float32
-units in the last place). The JAX tracking step is one fused program; its
+A stage differs when an integer plane has an entry that differs ("i<n>")
+or a float plane a value that differs ("f<n>", with the largest difference
+in ulps: float32 units in the last place). The last lines give the first
+integer divergence, the keyframes each package created and both ATEs. The JAX tracking step is one fused program; its
 stages come from a copy that also returns them, run on the same inputs, and
-the tool checks that the copy's pose and matches equal the fused program's.
+the tool checks that the copy's pose and matches equal the fused program's
+(the copy is tools/fed_stages_torch.py's ``_jax_step_stages``).
 Both packages run on the CPU; JAX with the flags of tests/conftest.py.
 """
 
@@ -41,14 +43,15 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+from fed_stages_torch import _jax_step_stages, _np, ulps  # noqa: E402
 from test_torch_slice import SEQ, H, W, jax_draws, small_config  # noqa: E402
 from weiner_slamit_v2_tpu import config as jconfig  # noqa: E402
 from weiner_slamit_v2_tpu.geometry.camera import Camera as JCamera  # noqa: E402
@@ -62,58 +65,25 @@ from weiner_slamit_v2_torch.tracking.system import System  # noqa: E402
 
 STAGES = ("extract", "undistort", "motion match", "pose LM 1", "local map", "pose LM 2",
           "keyframe", "map")
+# the tracking step's stages: outputs of tools/fed_stages_torch.py's JAX stage copy
+STAGE_KEYS = {"motion match": ("obs_c", "n_c"), "pose LM 1": ("Tcw1", "obs_d", "n_i1"),
+              "local map": ("obs_e",), "pose LM 2": ("Tcw2", "obs_f", "n_i2")}
 MAP_FIELDS = ("kf_valid", "kf_pose", "kf_obs", "kf_xy", "kf_angle", "kf_desc", "mp_valid", "mp_pos",
               "mp_desc", "mp_normal", "mp_n_obs", "mp_obs_kf", "mp_visible", "mp_found", "n_kf", "n_mp")
 
 
-def _np(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
-def _jax_stages(m, feats, last_obs, last_octave, last_angle, has_velocity, velocity, last_Tcw,
-                ref_kf, K, scale_factors, inv_sigma2, p, n_levels, max_local_points, local_kf_cap,
-                pose_rounds, pose_iters, histo_bins, **_):
-    """The monocular body of the JAX ``_track_step_impl``, returning each stage."""
-    Tcw_pred = jnp.where(has_velocity, velocity @ last_Tcw, last_Tcw)
-
-    def motion(window):
-        return jtm._track_last_frame(m, feats, last_obs, last_octave, last_angle, Tcw_pred, K,
-                                     window, scale_factors, n_levels, p.nn_ratio_motion, p.th_high,
-                                     histo_bins, forward=False, backward=False)
-
-    obs_a, n_a = motion(p.motion_window)
-    obs_b, n_b = jax.lax.cond(n_a < p.min_matches_motion, lambda: motion(2.0 * p.motion_window),
-                              lambda: (obs_a, n_a))
-    need_ref = n_b < p.min_matches_motion
-    obs_c, n_c = jax.lax.cond(need_ref, lambda: jtm._match_reference_kf(
-        m, feats, ref_kf, p.nn_ratio_refkf, p.th_low, histo_bins), lambda: (obs_b, n_b))
-    Tcw0 = jnp.where(need_ref, last_Tcw, Tcw_pred)
-    Tcw1, obs_d, n_i1 = jtm._pose_opt_on_obs(m, feats, obs_c, Tcw0, K, inv_sigma2, pose_rounds,
-                                             pose_iters, p.lm_lambda)
-    obs_e, _ = jtm._track_local_map(m, feats, obs_d, Tcw1, K, scale_factors, p.local_th, n_levels,
-                                    p.nn_ratio_localmap, p.th_high, max_local_points=max_local_points,
-                                    local_kf_cap=local_kf_cap, bounds=p.bounds)
-    Tcw2, obs_f, n_i2 = jtm._pose_opt_on_obs(m, feats, obs_e, Tcw1, K, inv_sigma2, pose_rounds,
-                                             pose_iters, p.lm_lambda)
-    return {"motion match": (obs_c, n_c), "pose LM 1": (Tcw1, obs_d, n_i1),
-            "local map": (obs_e,), "pose LM 2": (Tcw2, obs_f, n_i2)}
-
-
 def run_jax(frames, cfg, rec: list) -> JSystem:
     """The JAX session; appends one dict of stage results per frame to rec."""
-    stages = jax.jit(_jax_stages, static_argnames=(
+    stages = jax.jit(_jax_step_stages, static_argnames=(
         "n_levels", "max_local_points", "local_kf_cap", "pose_rounds", "pose_iters", "histo_bins"))
     fused = jtm._track_step
 
     def step(*args, **kw):
         out = fused(*args, **kw)
-        s = stages(*args, **kw)
-        for a, b in ((s["pose LM 2"][0], out[1]), (s["pose LM 2"][1], out[2])):
-            if not np.array_equal(_np(a), _np(b)):
-                raise SystemExit("the instrumented JAX step differs from the fused one")
-        rec[-1].update({k: tuple(_np(v) for v in vals) for k, vals in s.items()})
+        s = {k: _np(v) for k, v in stages(*args, **kw).items()}
+        if not (np.array_equal(s["Tcw2"], _np(out[1])) and np.array_equal(s["obs_f"], _np(out[2]))):
+            raise SystemExit("the instrumented JAX step differs from the fused one")
+        rec[-1].update({st: tuple(s[k] for k in keys) for st, keys in STAGE_KEYS.items()})
         return out
 
     js = JSystem(cfg, JCamera.create(300.0, 300.0, 159.5, 119.5, width=W, height=H))
@@ -192,18 +162,19 @@ def run_port(frames, cfg, rec: list) -> System:
     return ts
 
 
-def ulps(a: np.ndarray, b: np.ndarray) -> int:
-    """Largest float32 distance in ulps between a and b (both finite)."""
-    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
-    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
-    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
-    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
-    return int(np.abs(ia - ib).max()) if ia.size else 0
+def _ate(sys_, seq) -> float:
+    """Scale-aligned ATE of a System's trajectory after finish()."""
+    from weiner_slamit_v2_tpu.io.evaluation import ate_rmse
+
+    sys_.finish()
+    _, Twc = sys_.tracker.trajectory_Twc()
+    return float(ate_rmse(np.asarray(Twc), seq.gt_Twc[-len(Twc):]))
 
 
 def compare(a: tuple, b: tuple) -> str:
-    """'=' or what differs: entries (integer planes) and max ulps (floats)."""
-    n_diff, worst = 0, 0
+    """'=' or what differs: "i<n>" integer entries, "f<n>" float entries and
+    their max ulps."""
+    n_int, n_float, worst = 0, 0, 0
     for x, y in zip(a, b):
         x, y = np.asarray(x), np.asarray(y)
         if x.shape != y.shape:
@@ -212,14 +183,14 @@ def compare(a: tuple, b: tuple) -> str:
             x32, y32 = x.astype(np.float32), y.astype(np.float32)
             d = ~((x32 == y32) | (np.isnan(x32) & np.isnan(y32)))
             if d.any():
-                n_diff += int(d.sum())
-                ok = np.isfinite(x32) & np.isfinite(y32)
+                n_float += int(d.sum())
+                ok = d & np.isfinite(x32) & np.isfinite(y32)
                 worst = max(worst, ulps(x32[ok], y32[ok]))
         else:
-            n_diff += int((x.astype(np.int64) != y.astype(np.int64)).sum())
-    if n_diff == 0:
+            n_int += int((x.astype(np.int64) != y.astype(np.int64)).sum())
+    if n_int == 0 and n_float == 0:
         return "="
-    return f"{n_diff}" + (f" ({worst} ulp)" if worst else "")
+    return " ".join(([f"i{n_int}"] if n_int else []) + ([f"f{n_float} ({worst} ulp)"] if n_float else []))
 
 
 def main():
@@ -230,8 +201,8 @@ def main():
     torch.set_num_threads(1)
     seq = make_synthetic_sequence(**{**SEQ, "n_frames": args.frames})
     jrec, trec = [], []
-    run_jax(seq.frames, small_config(jconfig), jrec)
-    run_port(seq.frames, small_config(tconfig), trec)
+    jsys = run_jax(seq.frames, small_config(jconfig), jrec)
+    tsys = run_port(seq.frames, small_config(tconfig), trec)
     lines = ["frame | JAX / port state | " + " | ".join(STAGES),
              "---|---|" + "---|" * len(STAGES)]
     first = None
@@ -248,9 +219,16 @@ def main():
                 first = (i, st, c)
             cells.append(c)
         lines.append(f"{i} | {a['state']} / {b['state']} | " + " | ".join(cells))
+    first_int = next(((i, st, c) for i, (a, b) in enumerate(zip(jrec, trec)) for st in STAGES
+                      if st in a and st in b and "i" in (c := compare(a[st], b[st]))), None)
     lines.append("")
     lines.append("first divergence: " + (f"frame {first[0]}, {first[1]}: {first[2]}" if first
                                          else "none: every stage of every frame is equal"))
+    lines.append("first integer divergence: " + (f"frame {first_int[0]}, {first_int[1]}: {first_int[2]}"
+                                                 if first_int else "none"))
+    lines.append(f"keyframes created: JAX {jsys.tracker.n_kf_host}, port {tsys.tracker.n_kf_host}; "
+                 f"ATE (scale-aligned, OK frames after finish): JAX {_ate(jsys, seq):.5f} m, "
+                 f"port {_ate(tsys, seq):.5f} m")
     text = "\n".join(lines)
     print(text)
     if args.out:

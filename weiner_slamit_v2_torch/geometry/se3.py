@@ -7,7 +7,11 @@ function broadcasts over leading batch dims.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..ops import xla_math
+from ..util import fma
 
 _EPS = 1e-8
 
@@ -30,24 +34,53 @@ def hat(omega: torch.Tensor) -> torch.Tensor:
     )
 
 
+# float32 constants of the small-angle series: XLA folds ``theta2 / 6.0``
+# into a product with the rounded reciprocal
+_INV6 = float(np.float32(1.0 / 6.0))
+_INV24 = float(np.float32(1.0 / 24.0))
+_INV120 = float(np.float32(1.0 / 120.0))
+
+
+def matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B (batched) as XLA:CPU's elemental dot computes a small product:
+    each output a chain of fused multiply-adds over k = 0, 1, ..., from the
+    first product alone. torch's matmul sums in the order of its BLAS (on
+    the card, cuBLAS's), which parts from it by an ulp on most 3x3
+    products."""
+    out = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        out = fma(A[..., :, k:k + 1], B[..., k:k + 1, :], out)
+    return out
+
+
 def _coeffs(omega: torch.Tensor):
-    theta2 = (omega * omega).sum(-1)
-    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    """(a, b, c, K, K @ K) of the Rodrigues forms, in the roundings of the
+    JAX package's jitted ``exp`` (XLA:CPU, ``--xla_cpu_max_isa=AVX2``):
+    theta2 a fused chain, sqrt correctly rounded, sin and cos glibc's
+    (``ops/xla_math.py``), the series' products fused into their
+    differences."""
+    w0, w1, w2 = omega[..., 0], omega[..., 1], omega[..., 2]
+    theta2 = fma(w2, w2, fma(w1, w1, w0 * w0))
+    theta = xla_math.sqrt(theta2 + _EPS * _EPS)
     big = theta2 > _EPS
-    a = torch.where(big, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
-    b = torch.where(big, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
-    c = torch.where(
-        big, (theta - torch.sin(theta)) / (theta2 * theta), 1.0 / 6.0 - theta2 / 120.0
-    )
-    return a, b, c
+    sin, cos = xla_math.sincos(theta)
+    a = torch.where(big, sin / theta, fma(-theta2, _INV6, 1.0))
+    b = torch.where(big, (1.0 - cos) / theta2, fma(-theta2, _INV24, 0.5))
+    c = torch.where(big, (theta - sin) / (theta2 * theta), fma(-theta2, _INV120, _INV6))
+    K = hat(omega)
+    return a, b, c, K, matmul(K, K)
+
+
+def _rodrigues(p, q, K, KK):
+    """I + p K + q K @ K, each entry two fused multiply-adds."""
+    eye = _eye(3, K, K.shape[:-2])
+    return fma(q[..., None, None], KK, fma(p[..., None, None], K, eye))
 
 
 def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues rotation: 3-vector -> 3x3 rotation matrix (batched)."""
-    a, b, _ = _coeffs(omega)
-    K = hat(omega)
-    eye = _eye(3, omega, K.shape[:-2])
-    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+    a, b, _, K, KK = _coeffs(omega)
+    return _rodrigues(a, b, K, KK)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -66,22 +99,17 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 def _left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     """SO(3) left Jacobian V: exp([u, w]) has translation V @ u."""
-    _, b, c = _coeffs(omega)
-    K = hat(omega)
-    eye = _eye(3, omega, K.shape[:-2])
-    return eye + b[..., None, None] * K + c[..., None, None] * (K @ K)
+    _, b, c, K, KK = _coeffs(omega)
+    return _rodrigues(b, c, K, KK)
 
 
 def exp(xi: torch.Tensor) -> torch.Tensor:
-    """SE(3) exponential: [upsilon, omega] -> 4x4 (batched)."""
+    """SE(3) exponential: [upsilon, omega] -> 4x4 (batched), bit-equal to
+    the JAX package's jitted ``exp`` on the CPU and on the card."""
     upsilon, omega = xi[..., :3], xi[..., 3:]
-    a, b, c = _coeffs(omega)
-    K = hat(omega)
-    KK = K @ K
-    eye = _eye(3, xi, K.shape[:-2])
-    R = eye + a[..., None, None] * K + b[..., None, None] * KK
-    V = eye + b[..., None, None] * K + c[..., None, None] * KK
-    return from_rt(R, (V @ upsilon[..., None])[..., 0])
+    a, b, c, K, KK = _coeffs(omega)
+    t = matmul(_rodrigues(b, c, K, KK), upsilon[..., None])[..., 0]
+    return from_rt(_rodrigues(a, b, K, KK), t)
 
 
 def log(T: torch.Tensor) -> torch.Tensor:
@@ -107,7 +135,7 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
 def inv(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid transform (batched)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
-    return from_rt(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+    return from_rt(Rt, -matmul(Rt, T[..., :3, 3:4])[..., 0])
 
 
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -121,7 +149,7 @@ def apply(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
 def retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative update exp(xi) @ T (g2o VertexSE3Expmap::oplusImpl)."""
-    return exp(xi) @ T
+    return matmul(exp(xi), T)
 
 
 def orthonormalize(T: torch.Tensor, iters: int = 2) -> torch.Tensor:
@@ -129,7 +157,7 @@ def orthonormalize(T: torch.Tensor, iters: int = 2) -> torch.Tensor:
     R = T[..., :3, :3]
     eye = _eye(3, T, R.shape[:-2])
     for _ in range(iters):
-        R = 0.5 * R @ (3.0 * eye - R.transpose(-1, -2) @ R)
+        R = matmul(0.5 * R, 3.0 * eye - matmul(R.transpose(-1, -2), R))
     return from_rt(R, T[..., :3, 3])
 
 

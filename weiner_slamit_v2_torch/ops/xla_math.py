@@ -79,8 +79,10 @@ def _atanf(q: torch.Tensor) -> torch.Tensor:
     """glibc's float ``__atanf`` of q >= 0 (or NaN)."""
     iq = q.view(torch.int32)
     i = (iq >= 0x3F300000).long() + (iq >= 0x3F980000).long() + (iq >= 0x401C0000).long()
-    coef = device_const("atanf_tables", q.device, _atanf_tables)[i]
-    a, b, c, d, hi, lo = coef.unbind(1)
+    # a gather, not an index: a 0-d index tensor would be read on the host
+    coef = device_const("atanf_tables", q.device, _atanf_tables).index_select(
+        0, i.reshape(-1)).reshape(*i.shape, 6)
+    a, b, c, d, hi, lo = coef.unbind(-1)
     small = iq < 0x3EE00000                       # |x| < 7/16: no reduction
     xr = torch.where(small, q, (q * a + b) / (q * c + d))
     z = xr * xr
@@ -154,9 +156,11 @@ def _reduce_large(xi: torch.Tensor):
     j = (xi >> 26) & 15
     shift = (xi >> 23) & 7
     m = ((xi & 0xFFFFFF) | 0x800000) << shift
-    res0 = (m * table[j]) & 0xFFFFFFFF            # 32-bit product
-    res1 = m * table[j + 4]                       # < 2**63: exact in int64
-    res2 = m * table[j + 8]
+    # take, not an index: a 0-d index tensor (one angle, as in se3.exp) would
+    # be read on the host, a synchronization
+    res0 = (m * table.take(j)) & 0xFFFFFFFF       # 32-bit product
+    res1 = m * table.take(j + 4)                  # < 2**63: exact in int64
+    res2 = m * table.take(j + 8)
     res0 = (res2 >> 32) | (res0 << 32)            # wraps as uint64 would
     res0 = res0 + res1
     n = ((res0 + (1 << 61)) >> 62) & 3
@@ -219,3 +223,11 @@ def sin(y: torch.Tensor) -> torch.Tensor:
 def cos(y: torch.Tensor) -> torch.Tensor:
     """float32 ``cos(y)`` as XLA:CPU computes it."""
     return sincos(y)[1]
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt`` correctly rounded, as XLA:CPU's ``vsqrtss`` and CUDA's
+    ``sqrtf`` give it: torch's CPU kernel (the AVX-512 build) is an ulp off
+    on about 1 % of arguments. The float64 root of a float32 rounds once to
+    the correctly rounded float32 root."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)

@@ -8,22 +8,64 @@ delta^2; without ``ur`` the computation is the monocular one, unchanged."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..geometry import se3
+from ..ops import xla_math
+from ..util import fma
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815     # 3-dof 95% gate (Optimizer.cc:310)
 HUBER_MONO = 2.4476519  # sqrt(5.991), Optimizer.cc:287
 
 
+_F32_1E_20 = float(np.float32(1e-20))
+
+
+def _fnma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``c - a * b`` with one rounding to float32 (a, b, c float32)."""
+    return torch.addcmul(c.to(torch.float64), a, b, value=-1.0).to(torch.float32)
+
+
 def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve the SPD 6x6 damped normal system by Cholesky. The JAX package
-    unrolls the factorization into scalar ops for the TPU; here it is one
-    batched LAPACK/cuSOLVER call that never syncs (a failed factorization
-    yields non-finite steps, which the LM acceptance test rejects)."""
-    L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
+    """Solve the damped 6x6 normal system A x = b as the JAX package's
+    ``solve6`` does: an unrolled Cholesky with every pivot clamped at
+    ``sqrt(max(s, 1e-20))``, forward and back substitution, in the JAX
+    package's operation order. A is read below its diagonal only. XLA:CPU
+    fuses each ``s - L[i][k] * L[j][k]`` into one fused multiply-add; here
+    that is a float64 ``addr`` / ``addcmul`` of float32 values rounded once
+    to float32, and the root a float64 root rounded once (torch's CPU
+    float32 root is not correctly rounded; its division is). The
+    factorization and the forward substitution update whole columns a step
+    (every entry still subtracts its terms in the order k = 0, 1, ...); the
+    back substitution subtracts in ascending k too, so it is a chain of
+    single fused multiply-adds. No library solver: a matrix that is not
+    positive definite after rounding gives a finite clamped step, as in
+    JAX, and the card computes what the CPU does."""
+    d, f = torch.float64, torch.float32
+    S, y = A, b
+    diag, cols, ys = [], [], []
+    for k in range(6):
+        m = torch.clamp(S[0, 0], min=_F32_1E_20)
+        dk = torch.sqrt(m.to(d)).to(f)
+        col = S[1:, 0] / dk
+        diag.append(dk)
+        cols.append(col)
+        if k == 5:
+            break
+        yk = y[0] / dk
+        ys.append(yk)
+        S = torch.addr(S[1:, 1:].to(d), col, col, alpha=-1.0).to(f)
+        y = _fnma(col, yk, y[1:])
+    # x5 = y5 / L55 = (s / sqrt(m)) / sqrt(m): XLA's simplifier folds it to s / m
+    x = [None] * 5 + [y[0] / m]
+    for i in reversed(range(5)):
+        s = ys[i]
+        for k in range(i + 1, 6):
+            s = _fnma(cols[i][k - i - 1], x[k], s)
+        x[i] = s / diag[i]
+    return torch.stack(x)
 
 
 def _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur=None, bf=0.0):
@@ -51,6 +93,57 @@ def _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur=None, bf=0.0):
     return ru, rv, Ju, Jv, z, rur, Ju + (bf * iz2) * Jz
 
 
+def _lm_tail(H, b, lam, Tcw):
+    """(dx, updated pose) of one LM iteration: the damping (XLA fuses
+    ``lam * diag(H) + H`` into one multiply-add), the solve, the update."""
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    dx = solve6(fma(lam, torch.diag(torch.diag(H)), H) + 1e-9 * eye6, b)
+    return dx, se3.retract(Tcw, dx)
+
+
+# On the card the tail replays as one CUDA graph per device: its exact forms
+# are ~300 launches on 0-d and 6x6 tensors, which the host would enqueue one
+# by one; the graph runs the same kernels on the same inputs, so the bits are
+# the eager tail's. False runs it eagerly.
+CUDA_GRAPH_TAIL = True
+_TAIL_GRAPHS: dict = {}
+
+
+def _capture_tail(dev: torch.device):
+    """(graph, static inputs, static outputs) of _lm_tail on ``dev``."""
+    with torch.cuda.device(dev):
+        ins = (torch.eye(6, device=dev), torch.zeros(6, device=dev),
+               torch.full((), 1e-3, device=dev), torch.eye(4, device=dev))
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)      # the capture's own synchronization
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):      # warm up: device constants, allocator
+                _lm_tail(*ins)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = _lm_tail(*ins)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return graph, ins, outs
+
+
+def _damped_step(H, b, lam, Tcw):
+    """_lm_tail, through the device's CUDA graph on the card. Its outputs are
+    the graph's buffers: read them before the next call."""
+    if not (H.is_cuda and CUDA_GRAPH_TAIL):
+        return _lm_tail(H, b, lam, Tcw)
+    if H.device not in _TAIL_GRAPHS:
+        _TAIL_GRAPHS[H.device] = _capture_tail(H.device)
+    graph, ins, outs = _TAIL_GRAPHS[H.device]
+    for dst, src in zip(ins, (H, b, lam, Tcw)):
+        dst.copy_(src)
+    graph.replay()
+    return outs
+
+
 def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
                   n_iters: int = 10, chi2_th: float = CHI2_MONO,
                   lambda_init: float = 1e-3, ur=None, bf=0.0):
@@ -66,7 +159,6 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
         chi2_th = torch.where(is_st, CHI2_STEREO, chi2_th)
     else:
         delta2 = CHI2_MONO
-    eye6 = torch.eye(6, dtype=Tcw0.dtype, device=Tcw0.device)
 
     def resid(Tcw):
         out = _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur, bf)
@@ -86,7 +178,7 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
         rho = chi2
         if robust:
             rho = torch.where(chi2 <= delta2, chi2,
-                              2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
+                              2.0 * xla_math.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
         return torch.where(mask & (z > 0), rho, 0.0).sum()
 
     Tcw, inliers = Tcw0, valid
@@ -98,7 +190,8 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
             chi2 = (ru * ru + rv * rv) * inv_sigma2
             if stereo:
                 chi2 = chi2 + rur * rur * inv_sigma2
-            wr = torch.where(chi2 <= delta2, 1.0, torch.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
+            # the roots correctly rounded, as XLA's (torch's CPU float32 root is not)
+            wr = torch.where(chi2 <= delta2, 1.0, xla_math.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
             w = inv_sigma2 * (wr if robust else 1.0)
             w = torch.where(inliers & (z > 0), w, 0.0)
             Juw, Jvw = Ju * w, Jv * w
@@ -109,8 +202,7 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
                 H = H + Jurw @ Jur.T
                 b = b - Jurw @ rur
             cost0 = robust_cost(chi2, z, inliers, robust)
-            dx = solve6(H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye6, b)
-            T_new = se3.retract(Tcw, dx)
+            dx, T_new = _damped_step(H, b, lam, Tcw)
             c_new, z_new = chi2_of(T_new)
             cost1 = robust_cost(c_new, z_new, inliers, robust)
             accept = (cost1 < cost0) & torch.isfinite(cost1) & torch.isfinite(dx).all()
