@@ -146,9 +146,11 @@ Phases (each failure ends the run with a non-zero exit code):
      port's contract; 7-9 within the bound the CPU audit measured for the
      port against JAX, 0) and prints each stage's largest float difference
      in ulps. Then optimize_pose at 1024 matches: device time, host time and
-     launches as the port runs it (the iteration's exact tail replayed as a
-     CUDA graph), eagerly, and eagerly with the library Cholesky solve it
-     replaced (kept in this file); the graph's pose equals the eager one.
+     launches as the port runs it (the iteration's exact tail replayed as
+     the CUDA graph a Tracker captures when it is built; the device time of
+     that form from events around the graph's replays), eagerly, and eagerly
+     with the library Cholesky solve it replaced (kept in this file); the
+     graph's pose equals the eager one.
 The kernel launch counts of phases 5, 7-17, 20, 21 and of each run of phase 19
 are each read from zero. With phase numbers as arguments (``python3
 chip_smoke.py 9 10``) only those of phases 7-21 run, after phases 1-6
@@ -2157,36 +2159,49 @@ def pose_problem(n: int, dev):
 
 def time_optimize_pose(dev, card: str) -> dict:
     """optimize_pose at POSE_MATCHES matches as the port runs it (solve6, the
-    iteration's tail replayed as a CUDA graph), eagerly, and eagerly with the
-    library solve it replaced: host time (events around 100 calls from
-    Python; 10 for the eager forms, ~0.5 s a call), launches, device time (a
-    graph of 2 calls; the eager forms only: a graph being captured cannot
-    replay the tail's graph, whose kernels are the eager form's); the poses
-    they reach."""
+    iteration's tail replayed as the CUDA graph a Tracker captures), eagerly
+    (_damped_step replaced by the tail itself), and eagerly with the library
+    solve it replaced: host time (events around 100 calls from Python; 10 for
+    the eager forms, ~0.5 s a call), launches, device time, the poses they
+    reach. The eager forms' device time is that of a graph of 2 calls
+    (device_ms). The graph form cannot be captured (a graph being captured
+    cannot replay the tail's graph), so its device time is the eager form's
+    with each of its n_rounds x n_iters = 40 tails' device time (device_ms of
+    the tail) replaced by one replay's: events around 100 back-to-back
+    replays, which the host enqueues faster than the card runs them."""
     from weiner_slamit_v2_torch.optim import pose_opt
 
     args = pose_problem(POSE_MATCHES, dev)
-    exact, rows = pose_opt.solve6, {}
-    for name, solve, graph, reps in (("solve6, tail graph", exact, True, 100),
-                                     ("solve6, eager", exact, False, 10),
-                                     ("library Cholesky, eager", solve6_library, False, 10)):
-        pose_opt.solve6, pose_opt.CUDA_GRAPH_TAIL = solve, graph
+    pose_opt.capture_tail(dev)
+    exact, damped, rows = pose_opt.solve6, pose_opt._damped_step, {}
+    for name, solve, step, reps in (("solve6, tail graph", exact, damped, 100),
+                                    ("solve6, eager", exact, pose_opt._lm_tail, 10),
+                                    ("library Cholesky, eager", solve6_library, pose_opt._lm_tail, 10)):
+        pose_opt.solve6, pose_opt._damped_step = solve, step
         try:
             fn = lambda: pose_opt.optimize_pose(*args)   # noqa: E731
             T, inl, n = fn()
             row = dict(host_ms=eager_ms(fn, reps=reps, loops=1), launches=runtime_launches(fn),
                        inliers=int(n))
-            if not graph:
+            if step is not damped:
                 row["device_ms"] = device_ms(fn, reps=2, loops=3)
             rows[name] = (row, T.cpu())
         finally:
-            pose_opt.solve6, pose_opt.CUDA_GRAPH_TAIL = exact, True
+            pose_opt.solve6, pose_opt._damped_step = exact, damped
         log(f"fed: optimize_pose at {POSE_MATCHES} matches (4 x 10 LM iterations), {name}: "
             f"{json.dumps(row)} on {card}")
+    H = torch.eye(6, device=dev) * 1e4 + 1e2
+    tail = (H, torch.ones(6, device=dev), torch.full((), 1e-3, device=dev), args[0])
+    tail_eager = device_ms(lambda: pose_opt._lm_tail(*tail), reps=20, loops=3)
+    tail_replay = eager_ms(lambda: pose_opt._damped_step(*tail), reps=100, loops=3)
+    a = rows["solve6, tail graph"][0]
+    a["device_ms"] = rows["solve6, eager"][0]["device_ms"] - 40 * (tail_eager - tail_replay)
+    log(f"fed: the iteration's tail: eager device {tail_eager:.5f} ms, one replay of its graph "
+        f"{tail_replay:.5f} ms (events around 100 replays); optimize_pose with the graph: device "
+        f"{a['device_ms']:.5f} ms (the eager form's less 40 x the difference) on {card}")
     T0 = rows["solve6, tail graph"][1]
     log(f"fed: the poses' largest difference from the graph's: " + json.dumps(
         {k: float((T - T0).abs().max()) for k, (_, T) in rows.items()}))
-    a = rows["solve6, tail graph"][0]
     check(a["inliers"] > 0.8 * POSE_MATCHES and bool(torch.isfinite(T0).all()), str(a))
     check(torch.equal(rows["solve6, eager"][1], T0), "fed: the graph's pose differs from the eager one")
     return a

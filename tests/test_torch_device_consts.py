@@ -18,6 +18,7 @@ from weiner_slamit_v2_torch.frontend import matcher
 from weiner_slamit_v2_torch.frontend.extractor import FrameFeatures
 from weiner_slamit_v2_torch.geometry.camera import Camera
 from weiner_slamit_v2_torch.ops import orb, pyramid, stereo
+from weiner_slamit_v2_torch.optim import pose_opt
 from weiner_slamit_v2_torch.optim.pose_opt import optimize_pose
 from weiner_slamit_v2_torch.slam_map.point_stats import predict_octave
 
@@ -115,6 +116,7 @@ def test_site_runs_without_a_sync_on_the_card(cuda_device, site):
     """Every site on the card under set_sync_debug_mode("error"), once its
     constants are built; the result equals the CPU's."""
     call = _sites(cuda_device)[site]
+    pose_opt.capture_tail(cuda_device)   # as a Tracker does when it is built
     call()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

@@ -19,10 +19,14 @@ figures measured on an x86-64 CPU (XLA:CPU with --xla_cpu_max_isa=AVX2):
 - mapping pre: new points within 8.2e-4 (the triangulation's SVD is
   LAPACK's in JAX and torch's here), their normals and depth ranges with
   them;
-- local BA: poses within 2.88e-3, points within 2.71 (a far point along
-  its ray) and the final cost within 1.52e-5 relative (the BA's sums; its
-  acceptance gate, cost1 < cost0, is where the staged session's damping
-  parts: tools/fed_stages_torch.py --session staged).
+- local BA: poses within 2.5e-4, points within 1e-3 m (the scene is
+  0.2-1.8 m from the cameras) except one far point in each of the last two
+  passes (5.8 and 13.3 m away, 2 observations each: low parallax), whose
+  ray stays within 2.3e-4 rad while it slides 0.19 and 2.41 m along it, and
+  the final cost within 1.2e-5 relative (the BA's sums; its acceptance
+  gate, cost1 < cost0 and a finite step, takes other branches near the
+  minimum: tools/fed_stages_torch.py traces it iteration by iteration,
+  and test_ba_trace_of_the_last_pass holds that trace on the last pass).
 """
 
 import os
@@ -54,23 +58,25 @@ def audit():
     from weiner_slamit_v2_torch import config as tconfig
 
     cfg = fed.session_config(tconfig, "slice")[0]
-    rows, states, ba = [], [], []
+    rows, states, ba, calls = [], [], [], []
 
     def on_record(rec):
         rows.append(fed.audit_frame(rec, cfg, "cpu"))
         states.append(rec["state"])
         for call in rec.get("mapping", []):
             if call["fn"] == "solve_ba":
-                ba.append((call["out"]["res"], fed.port_mapping(call, rec["consts"], cfg, "cpu")["res"]))
+                ba.append((call["out"]["res"], fed.port_mapping(call, rec["consts"], cfg, "cpu")["res"],
+                           call["in"]["prob"]))
+                calls.append(call)
 
     notes, _ = fed.jax_records("slice", N_FRAMES, on_record)
-    return rows, states, notes, ba
+    return rows, states, notes, ba, calls
 
 
 def test_jax_stage_copies_are_the_session(audit):
     """The JAX stage copy equals the fused tracking step on every frame, and
     each pass as pre -> solve_ba -> finish equals the fused mapping program."""
-    rows, states, notes, _ = audit
+    rows, states, notes, *_ = audit
     assert notes == []
     assert len(rows) == N_FRAMES and states[:2] == ["NOT_INITIALIZED"] * 2
     assert all(s == "OK" for s in states[2:])
@@ -100,8 +106,42 @@ def test_keyframe_and_bow_within_two_ulp(audit):
 def test_local_ba_within_measured(audit):
     ba = audit[3]
     assert len(ba) == RUNS["local BA"]
-    for ref, port in ba:
+    n_far = []
+    for ref, port, prob in ba:
         np.testing.assert_array_equal(port["obs_inlier"], ref["obs_inlier"])
-        np.testing.assert_allclose(port["cam_pose"], ref["cam_pose"], rtol=0, atol=2.88e-3)
-        np.testing.assert_allclose(port["points"], ref["points"], rtol=0, atol=2.71)
-        np.testing.assert_allclose(port["final_cost"], ref["final_cost"], rtol=1.52e-5)
+        np.testing.assert_allclose(port["cam_pose"], ref["cam_pose"], rtol=0, atol=2.5e-4)
+        np.testing.assert_allclose(port["final_cost"], ref["final_cost"], rtol=1.2e-5)
+        # each point's distance from its nearest camera of the window; a far
+        # point is more than 4 x the median away
+        pv = prob["point_valid"].astype(bool)
+        P = ref["points"][pv].astype(np.float64)
+        Q = port["points"][pv].astype(np.float64)
+        T = ref["cam_pose"][prob["cam_valid"].astype(bool)].astype(np.float64)
+        C = -np.einsum("cji,cj->ci", T[:, :3, :3], T[:, :3, 3])
+        d = np.linalg.norm(P[:, None] - C[None], axis=2)
+        near = d.argmin(1)
+        dist = d[np.arange(len(P)), near]
+        far = dist > 4 * np.median(dist)
+        n_far.append(int(far.sum()))
+        np.testing.assert_allclose(Q[~far], P[~far], rtol=0, atol=1e-3)
+        ray = (P[far] - C[near[far]]) / dist[far, None]
+        diff = Q[far] - P[far]
+        across = diff - (diff * ray).sum(1, keepdims=True) * ray
+        assert np.all(np.linalg.norm(across, axis=1) / dist[far] <= 2.3e-4)
+    assert n_far == [0, 0, 0, 0, 1, 1]
+
+
+def test_ba_trace_of_the_last_pass(audit):
+    """The fused BA's LM iteration by iteration (fed.trace_ba) on the last
+    pass: the JAX loop's copy equals the package's programs, and on JAX's
+    state of each of the 15 iterations the port takes JAX's branch but in
+    two: iteration 4, where the port's Cholesky of the reduced camera
+    system fails (the free cameras' smallest eigenvalue -8.0e-7 of the
+    largest in the port's float32 system) and JAX's does not, and
+    iteration 14, where the two costs lie within 4.5e-7 of each other
+    relative to cost0 in both packages."""
+    lines = fed.trace_ba(audit[4][-1])
+    assert lines[0].startswith("the JAX copy equals the package's programs"), lines[0]
+    on_jax = [line for line in lines if "on JAX's state" in line]
+    assert [int(line.split()[1]) for line in on_jax] == [4, 14], on_jax
+    assert "port cost0" in on_jax[0] and on_jax[0].split("port cost0")[1].count("step not finite") == 1

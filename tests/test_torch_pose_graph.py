@@ -115,3 +115,31 @@ def test_correct_map_after_pose_graph_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     untouched = ~valid | (ref < 0)
     np.testing.assert_array_equal(got[untouched], pos[untouched])
+
+
+@pytest.mark.parametrize("definite", [True, False], ids=["positive-definite", "indefinite"])
+def test_dense_solve_fails_where_jax_fails(definite):
+    """Both packages solve the dense system by Cholesky (JAX:
+    jax.scipy.linalg.solve, assume_a="pos"). On a system that is not
+    positive definite JAX's solution is NaN, and the LM rejects the step;
+    the port's is NaN too, not a step from the partial factor. Here one
+    vertex's diagonal block is negated."""
+    rng = np.random.default_rng(4)
+    K, E = 5, 6
+    A = rng.normal(0, 1, (K, 7, 7)).astype(np.float32)
+    D = A @ A.transpose(0, 2, 1) + 7 * np.eye(7, dtype=np.float32)
+    if not definite:
+        D[2] = -D[2]
+    Hij = rng.normal(0, 0.1, (E, 7, 7)).astype(np.float32)
+    ei = np.array([0, 1, 2, 3, 0, 1], np.int32)
+    ej = np.array([1, 2, 3, 4, 4, 3], np.int32)
+    off_ok = np.array([1, 1, 1, 1, 1, 0], np.float32)
+    b = rng.normal(0, 1, (K, 7)).astype(np.float32)
+    args = (D, Hij, ei, ej, off_ok, b)
+    want = np.asarray(jpg._solve_dense(*map(jnp.asarray, args)))
+    got = pose_graph._solve_dense(*map(t_, args)).numpy()
+    assert np.isfinite(want).all() == np.isfinite(got).all() == definite
+    if definite:
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    else:
+        assert np.isnan(want).all() and np.isnan(got).all()

@@ -233,6 +233,7 @@ def test_card_graph_tail_equals_eager():
             torch.from_numpy(X.astype(np.float32)), torch.from_numpy(uv.astype(np.float32)),
             torch.ones(n), torch.ones(n, dtype=torch.bool), torch.from_numpy(K)]
     args = [a.cuda() for a in args]
+    pose_opt.capture_tail("cuda")
     for A, b in spd_systems(20):
         H, bb = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
         lam, T = torch.full((), 1e-3, device="cuda"), args[0]
@@ -240,9 +241,10 @@ def test_card_graph_tail_equals_eager():
         graph = pose_opt._damped_step(H, bb, lam, T)
         assert all(torch.equal(e, g) for e, g in zip(eager, graph))
     with_graph = pose_opt.optimize_pose(*args)
-    pose_opt.CUDA_GRAPH_TAIL = False
+    real = pose_opt._damped_step
+    pose_opt._damped_step = pose_opt._lm_tail
     try:
         eager = pose_opt.optimize_pose(*args)
     finally:
-        pose_opt.CUDA_GRAPH_TAIL = True
+        pose_opt._damped_step = real
     assert all(torch.equal(e, g) for e, g in zip(eager, with_graph))

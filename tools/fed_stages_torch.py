@@ -847,6 +847,156 @@ def record_jax_session(js, frames, on_record) -> list:
     return notes
 
 
+# --- the local BA's LM, iteration by iteration ------------------------------------------
+
+def _port_ba_step(prob, cam_pose, points, lam, active, robust: bool):
+    """One iteration of the port's LM (local_ba._lm_step): its two costs,
+    its decision, the state after it, and the reduced camera system's
+    smallest over largest eigenvalue on the free cameras (float64 of the
+    float32 system the Cholesky factors: near 0 or below, rounding decides
+    whether it is positive definite, and the step)."""
+    seen, real = [], torch.linalg.cholesky_ex
+
+    def cholesky_ex(A, **kw):
+        seen.append(A)
+        return real(A, **kw)
+
+    cam_free = prob.cam_valid & ~prob.cam_fixed
+    point_free = prob.point_valid & (tba._base_obs(prob).sum(1) > 0)
+    torch.linalg.cholesky_ex = cholesky_ex
+    try:
+        pose, pts, lam1, c0, c1, accept = tba._lm_step(prob, cam_pose, points, active, robust, lam,
+                                                       cam_free, point_free)
+    finally:
+        torch.linalg.cholesky_ex = real
+    free = cam_free.repeat_interleave(6)
+    eig = torch.linalg.eigvalsh(seen[0][free][:, free].double())
+    return float(c0), float(c1), bool(accept), pose, pts, lam1, float(eig[0] / eig[-1])
+
+
+_JAX_BA = {}
+
+
+def _jax_ba_fns():
+    """A jitted copy of the JAX package's _lm_phase (optim/local_ba.py) whose
+    loop also keeps, for every iteration, the state it starts from, the
+    damping, both costs of the acceptance gate and its decision (trace_ba
+    holds its results against the package's own programs)."""
+    if _JAX_BA:
+        return _JAX_BA
+    from functools import partial
+
+    jax = _jax()
+    import jax.numpy as jnp
+    from weiner_slamit_v2_tpu.geometry import se3 as jse3
+    from weiner_slamit_v2_tpu.optim import local_ba as jlba
+
+    @partial(jax.jit, static_argnames=("robust", "n_iters"))
+    def phase(prob, cam_pose, points, lam0, active_obs, robust, n_iters):
+        C = prob.cam_pose.shape[0]
+        cam_free = prob.cam_valid & ~prob.cam_fixed
+        point_free = prob.point_valid & (jlba._base_obs(prob).sum(axis=1) > 0)
+        rb = jnp.asarray(robust)
+
+        def step(i, st):
+            cam_pose, points, lam, poses, pts, lams, c0s, c1s, accs = st
+            poses, pts, lams = poses.at[i].set(cam_pose), pts.at[i].set(points), lams.at[i].set(lam)
+            c0, chi2, _ = jlba._total_cost(cam_pose, points, prob.K, prob, active_obs, rb)
+            w = prob.obs_inv_sigma2 * jlba._robust_weight(chi2, rb, jlba._per_obs_chi2_th(prob))
+            w = jnp.where(active_obs, w, 0.0)
+            Hcc, bc, Hpp, bp, U = jlba.build_normal_equations(
+                cam_pose, points, prob.K, prob.obs_cam, prob.obs_uv, w, C, prob.obs_ur,
+                prob.obs_has_ur, prob.bf)
+            dc, dp = jlba.schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam)
+            new_pose, new_pts = jax.vmap(jse3.retract)(cam_pose, dc), points + dp
+            c1, _, _ = jlba._total_cost(new_pose, new_pts, prob.K, prob, active_obs, rb)
+            finite = jnp.isfinite(c1) & jnp.all(jnp.isfinite(dc)) & jnp.all(jnp.isfinite(dp))
+            accept = (c1 < c0) & finite
+            cam_pose = jnp.where(accept, new_pose, cam_pose)
+            points = jnp.where(accept, new_pts, points)
+            lam = jnp.clip(jnp.where(accept, lam * 0.5, lam * 8.0), 1e-5, 1e3)
+            return (cam_pose, points, lam, poses, pts, lams, c0s.at[i].set(c0), c1s.at[i].set(c1),
+                    accs.at[i].set(accept))
+
+        z = jnp.zeros(n_iters, jnp.float32)
+        return jax.lax.fori_loop(0, n_iters, step, (
+            cam_pose, points, lam0, jnp.zeros((n_iters,) + cam_pose.shape, cam_pose.dtype),
+            jnp.zeros((n_iters,) + points.shape, points.dtype), z, z, z,
+            jnp.zeros(n_iters, bool)))
+
+    def problem(d):
+        return jlba.BAProblem(**{k: None if v is None else jnp.asarray(v) for k, v in d.items()})
+
+    _JAX_BA.update(phase=phase, problem=problem, base=jlba._base_obs, phase1=jlba.ba_phase1,
+                   phase2=jlba.ba_phase2_chunk, finalize=jlba.ba_finalize, jnp=jnp)
+    return _JAX_BA
+
+
+def trace_ba(call: dict) -> list[str]:
+    """A solve_ba call's LM, iteration by iteration: the JAX package's (its
+    loop copied to keep every iteration's values; its state after each phase
+    and its result are held against the package's own ba_phase1 /
+    ba_phase2_chunk / ba_finalize, which compose the fused solve_ba), the
+    port's on its own state from the same start, and the port's iteration on
+    the JAX state of that iteration. Names every iteration whose acceptance
+    gate (cost1 < cost0, and a finite step) takes another branch: first in
+    the two chains, then on the fed state, with both packages' costs."""
+    J = _jax_ba_fns()
+    jnp = J["jnp"]
+    d, n1, n2 = call["in"]["prob"], call["in"]["iters1"], call["in"]["iters2"]
+    jp, tp = J["problem"](d), _problem(d, "cpu")
+    lam0 = np.float32(tba.BA_LAMBDA_INIT)     # solve_ba's lambda_init in both packages
+    c5, p5, _, inl = J["phase1"](jp, n1)
+    o1 = J["phase"](jp, jp.cam_pose, jp.points, jnp.float32(lam0), J["base"](jp), True, n1)
+    c15, p15, _ = J["phase2"](jp, c5, p5, float(lam0), inl, n2)
+    o2 = J["phase"](jp, c5, p5, jnp.float32(lam0), inl, False, n2)
+    res = J["finalize"](jp, c15, p15)
+    faithful = all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in (
+        (o1[0], c5), (o1[1], p5), (o2[0], c15), (o2[1], p15)))
+    faithful &= all(np.array_equal(np.asarray(getattr(res, k)), call["out"]["res"][k])
+                    for k in ("cam_pose", "points"))
+    jrows = []    # (state, lam, c0, c1, accept, active, robust) per iteration
+    for o, act, robust in ((o1, J["base"](jp), True), (o2, inl, False)):
+        for i in range(len(o[5])):
+            jrows.append(((o[3][i], o[4][i]), o[5][i], float(o[6][i]), float(o[7][i]), bool(o[8][i]),
+                          act, robust))
+    ts, tact, lines, first = (tp.cam_pose, tp.points, torch.tensor(lam0)), tba._base_obs(tp), [], None
+    for it, ((jc, jx), jlam, jc0, jc1, jacc, jact, robust) in enumerate(jrows):
+        if it == n1:        # phase 2: the phase-1 inliers, the damping restarted
+            tact = tba.ba_phase1(dataclasses.replace(tp, cam_pose=ts[0], points=ts[1]), n_iters=0)[3]
+            ts = (ts[0], ts[1], torch.tensor(lam0))
+        gap = (float(np.abs(np.asarray(jc) - _np(ts[0])).max()),
+               float(np.abs(np.asarray(jx) - _np(ts[1])).max()))
+        tc0, tc1, tacc, *tn, teig = _port_ba_step(tp, *ts, tact, robust)
+        fc0, fc1, facc, *_, feig = _port_ba_step(tp, _t(np.asarray(jc), "cpu"), _t(np.asarray(jx), "cpu"),
+                                           _t(np.asarray(jlam), "cpu"), _t(np.asarray(jact), "cpu"),
+                                           robust)
+        ts = tuple(tn)
+
+        def gate(c0, c1, acc):
+            why = "" if acc == (c1 < c0) else ", the step not finite"
+            return (f"cost0 {c0:.9g} cost1 {c1:.9g} {'accepts' if acc else 'rejects'} "
+                    f"({(c1 - c0) / max(abs(c0), 1e-30):+.3g} relative{why})")
+
+        where = f"iteration {it} (phase {1 if it < n1 else 2}, damping {float(jlam):.3g})"
+        if jacc != tacc:
+            first = it if first is None else first
+            lines.append(f"{where}, own states {gap[0]:.3g} / {gap[1]:.3g} apart (poses / points): "
+                         f"JAX {gate(jc0, jc1, jacc)}; port {gate(tc0, tc1, tacc)}, its reduced "
+                         f"system's eigenvalue ratio {teig:.3g}")
+        if jacc != facc:
+            lines.append(f"{where}, on JAX's state: JAX {gate(jc0, jc1, jacc)}; port "
+                         f"{gate(fc0, fc1, facc)}, the reduced system's eigenvalue ratio {feig:.3g}")
+    final = (float(np.abs(np.asarray(c15) - _np(ts[0])).max()),
+             float(np.abs(np.asarray(p15) - _np(ts[1])).max()))
+    head = (f"the JAX copy {'equals' if faithful else 'DIFFERS FROM'} the package's programs; "
+            f"chains {final[0]:.3g} / {final[1]:.3g} apart at the end (poses / points); "
+            + ("the gate takes the same branch in every iteration" if not lines else
+               f"first branch apart at iteration {first}" if first is not None else
+               "the chains take the same branches"))
+    return [head] + lines
+
+
 # --- sessions ------------------------------------------------------------------------------
 
 def session_config(mod, session: str, scale: float = 1.0):
@@ -949,9 +1099,15 @@ def main():
     rows, states, details = [], [], []
     t0 = time.time()
 
+    traces = []
+
     def on_record(rec):
         i = len(rows)
         rows.append(audit_frame(rec, cfg, "cpu"))
+        for call in rec.get("mapping", []):
+            if call["fn"] == "solve_ba":
+                traces.append(f"frame {i}, local BA:")
+                traces.extend(f"    {line}" for line in trace_ba(call))
         states.append(rec["state"])
         for st, r in rows[-1].items():
             if r["int"]:
@@ -966,7 +1122,9 @@ def main():
                       f"({time.time() - t0:.0f} s)", ""]
                      + table(rows, states) + [""] + summary(rows) + [""] + ["integer differences:"]
                      + (details or ["none"]) + [""] + ["gates that flipped with equal integer outputs:"]
-                     + (gate_notes(rows) or ["none"]) + [""] + ["notes:"] + (notes or ["none"]))
+                     + (gate_notes(rows) or ["none"]) + [""]
+                     + ["the fused local BA's LM acceptance, iteration by iteration:"]
+                     + (traces or ["no fused BA call"]) + [""] + ["notes:"] + (notes or ["none"]))
     print(text)
     if args.out:
         with open(args.out, "w") as f:

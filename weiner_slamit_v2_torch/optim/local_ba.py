@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..geometry import se3
+from ..ops import xla_math
 from ..util import index_add
 
 CHI2_MONO = 5.991
@@ -71,14 +72,14 @@ def _project(cam_pose, points, K, obs_cam, obs_uv):
 def _robust_weight(chi2, robust: bool, huber2=HUBER2):
     if not robust:
         return torch.ones_like(chi2)
-    return torch.where(chi2 <= huber2, 1.0, torch.sqrt(huber2 / torch.clamp(chi2, min=1e-12)))
+    return torch.where(chi2 <= huber2, 1.0, xla_math.sqrt(huber2 / torch.clamp(chi2, min=1e-12)))
 
 
 def _robust_cost(chi2, robust: bool, huber2=HUBER2):
     if not robust:
         return chi2
     return torch.where(chi2 <= huber2, chi2,
-                       2.0 * torch.sqrt(huber2 * torch.clamp(chi2, min=1e-12)) - huber2)
+                       2.0 * xla_math.sqrt(huber2 * torch.clamp(chi2, min=1e-12)) - huber2)
 
 
 def _per_obs_chi2_th(prob, chi2_mono=CHI2_MONO):
@@ -198,8 +199,11 @@ def schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam, reduce=None):
     S[ar, ar] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
     b_red = torch.where(free[:, None], b_red, 0.0)
     S_dense = S.permute(0, 2, 1, 3).reshape(C * 6, C * 6) + 1e-8 * torch.eye(C * 6, device=Hcc.device)
-    L, _ = torch.linalg.cholesky_ex(S_dense)
-    dc = torch.cholesky_solve(b_red.reshape(-1, 1), L).reshape(C, 6)
+    # a system that is not positive definite after rounding gives NaN, as
+    # JAX's Cholesky does (jax.scipy.linalg.solve, assume_a="pos"): the
+    # iteration is then rejected, never taken from a partial factorization
+    L, info = torch.linalg.cholesky_ex(S_dense)
+    dc = torch.where(info == 0, torch.cholesky_solve(b_red.reshape(-1, 1), L), torch.nan).reshape(C, 6)
     dc = torch.where(free[:, None], dc, 0.0)
     rhs = bp - (U.T @ dc.reshape(C * 6)).reshape(P, 3)
     dp = (Hpp_inv @ rhs[..., None])[..., 0]
@@ -223,6 +227,32 @@ def _base_obs(prob: BAProblem):
             & prob.cam_valid[prob.obs_cam.clamp(min=0).long()])
 
 
+def _lm_step(prob, cam_pose, points, active_obs, robust: bool, lam, cam_free, point_free,
+             reduce=None):
+    """One LM iteration: (cam_pose, points, lam) after it, the two costs
+    (c0, c1) its acceptance test compared, and its decision."""
+    c0, chi2, _ = _total_cost(cam_pose, points, prob, active_obs, robust)
+    w = torch.where(active_obs, prob.obs_inv_sigma2
+                    * _robust_weight(chi2, robust, _per_obs_chi2_th(prob)), 0.0)
+    Hcc, bc, Hpp, bp, U = build_normal_equations(
+        cam_pose, points, prob.K, prob.obs_cam, prob.obs_uv, w, prob.obs_ur,
+        prob.obs_has_ur, prob.bf)
+    dc, dp = schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam, reduce)
+    new_pose = se3.retract(cam_pose, dc)
+    new_pts = points + dp
+    c1, _, _ = _total_cost(new_pose, new_pts, prob, active_obs, robust)
+    if reduce is None:
+        dp_finite = torch.isfinite(dp).all()
+    else:
+        c0, c1, n_bad = reduce(c0, c1, (~torch.isfinite(dp)).sum())
+        dp_finite = n_bad == 0
+    accept = (c1 < c0) & torch.isfinite(c1) & torch.isfinite(dc).all() & dp_finite
+    cam_pose = torch.where(accept, new_pose, cam_pose)
+    points = torch.where(accept, new_pts, points)
+    lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 8.0), 1e-5, 1e3)
+    return cam_pose, points, lam, c0, c1, accept
+
+
 def _lm_phase(prob, cam_pose, points, active_obs, robust: bool, n_iters: int, lam, reduce=None):
     """``n_iters`` LM steps. With ``reduce`` (a sum over ranks, see
     schur_solve) the problem holds one rank's block of points: the reduced
@@ -232,25 +262,8 @@ def _lm_phase(prob, cam_pose, points, active_obs, robust: bool, n_iters: int, la
     point_free = prob.point_valid & (_base_obs(prob).sum(1) > 0)
     lam = torch.as_tensor(lam, dtype=torch.float32, device=points.device)
     for _ in range(n_iters):
-        c0, chi2, _ = _total_cost(cam_pose, points, prob, active_obs, robust)
-        w = torch.where(active_obs, prob.obs_inv_sigma2
-                        * _robust_weight(chi2, robust, _per_obs_chi2_th(prob)), 0.0)
-        Hcc, bc, Hpp, bp, U = build_normal_equations(
-            cam_pose, points, prob.K, prob.obs_cam, prob.obs_uv, w, prob.obs_ur,
-            prob.obs_has_ur, prob.bf)
-        dc, dp = schur_solve(Hcc, bc, Hpp, bp, U, cam_free, point_free, lam, reduce)
-        new_pose = se3.retract(cam_pose, dc)
-        new_pts = points + dp
-        c1, _, _ = _total_cost(new_pose, new_pts, prob, active_obs, robust)
-        if reduce is None:
-            dp_finite = torch.isfinite(dp).all()
-        else:
-            c0, c1, n_bad = reduce(c0, c1, (~torch.isfinite(dp)).sum())
-            dp_finite = n_bad == 0
-        accept = (c1 < c0) & torch.isfinite(c1) & torch.isfinite(dc).all() & dp_finite
-        cam_pose = torch.where(accept, new_pose, cam_pose)
-        points = torch.where(accept, new_pts, points)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 8.0), 1e-5, 1e3)
+        cam_pose, points, lam, *_ = _lm_step(prob, cam_pose, points, active_obs, robust, lam,
+                                             cam_free, point_free, reduce)
     return cam_pose, points, lam
 
 

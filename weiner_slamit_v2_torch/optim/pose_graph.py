@@ -33,8 +33,10 @@ def _solve_dense(D, Hij, ei, ej, off_ok, b):
     index_add(H, ej * K + ei, Ho.transpose(-1, -2))
     Hd = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
     Hd = Hd + 1e-8 * torch.eye(K * 7, dtype=D.dtype, device=D.device)
-    L, _ = torch.linalg.cholesky_ex(Hd)
-    return torch.cholesky_solve(b.reshape(-1, 1), L).reshape(K, 7)
+    # NaN when Hd is not positive definite after rounding, as JAX's Cholesky
+    # (assume_a="pos"): the LM rejects the step
+    L, info = torch.linalg.cholesky_ex(Hd)
+    return torch.where(info == 0, torch.cholesky_solve(b.reshape(-1, 1), L), torch.nan).reshape(K, 7)
 
 
 def _solve_pcg(D, Hij, ei, ej, off_ok, b, cg_iters: int):

@@ -23,11 +23,6 @@ HUBER_MONO = 2.4476519  # sqrt(5.991), Optimizer.cc:287
 _F32_1E_20 = float(np.float32(1e-20))
 
 
-def _fnma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``c - a * b`` with one rounding to float32 (a, b, c float32)."""
-    return torch.addcmul(c.to(torch.float64), a, b, value=-1.0).to(torch.float32)
-
-
 def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the damped 6x6 normal system A x = b as the JAX package's
     ``solve6`` does: an unrolled Cholesky with every pivot clamped at
@@ -35,7 +30,7 @@ def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     package's operation order. A is read below its diagonal only. XLA:CPU
     fuses each ``s - L[i][k] * L[j][k]`` into one fused multiply-add; here
     that is a float64 ``addr`` / ``addcmul`` of float32 values rounded once
-    to float32, and the root a float64 root rounded once (torch's CPU
+    to float32 (``util.fma``), and the root is ``xla_math.sqrt`` (torch's CPU
     float32 root is not correctly rounded; its division is). The
     factorization and the forward substitution update whole columns a step
     (every entry still subtracts its terms in the order k = 0, 1, ...); the
@@ -48,7 +43,7 @@ def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     diag, cols, ys = [], [], []
     for k in range(6):
         m = torch.clamp(S[0, 0], min=_F32_1E_20)
-        dk = torch.sqrt(m.to(d)).to(f)
+        dk = xla_math.sqrt(m)
         col = S[1:, 0] / dk
         diag.append(dk)
         cols.append(col)
@@ -57,13 +52,13 @@ def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         yk = y[0] / dk
         ys.append(yk)
         S = torch.addr(S[1:, 1:].to(d), col, col, alpha=-1.0).to(f)
-        y = _fnma(col, yk, y[1:])
+        y = fma(col, yk, y[1:], value=-1.0)
     # x5 = y5 / L55 = (s / sqrt(m)) / sqrt(m): XLA's simplifier folds it to s / m
     x = [None] * 5 + [y[0] / m]
     for i in reversed(range(5)):
         s = ys[i]
         for k in range(i + 1, 6):
-            s = _fnma(cols[i][k - i - 1], x[k], s)
+            s = fma(cols[i][k - i - 1], x[k], s, value=-1.0)
         x[i] = s / diag[i]
     return torch.stack(x)
 
@@ -104,39 +99,44 @@ def _lm_tail(H, b, lam, Tcw):
 # On the card the tail replays as one CUDA graph per device: its exact forms
 # are ~300 launches on 0-d and 6x6 tensors, which the host would enqueue one
 # by one; the graph runs the same kernels on the same inputs, so the bits are
-# the eager tail's. False runs it eagerly.
-CUDA_GRAPH_TAIL = True
+# the eager tail's. A Tracker captures it when it is built (capture_tail),
+# outside any step: a capture synchronizes the device. A graph being captured
+# cannot replay this one, so optimize_pose on the card cannot itself be
+# captured into a CUDA graph.
 _TAIL_GRAPHS: dict = {}
 
 
-def _capture_tail(dev: torch.device):
-    """(graph, static inputs, static outputs) of _lm_tail on ``dev``."""
+def capture_tail(dev) -> None:
+    """Capture _lm_tail's CUDA graph on the card ``dev`` once (later calls
+    return at once). The capture synchronizes the device, so call it outside
+    any step or batch: Tracker.__init__ does."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev in _TAIL_GRAPHS:
+        return
     with torch.cuda.device(dev):
         ins = (torch.eye(6, device=dev), torch.zeros(6, device=dev),
                torch.full((), 1e-3, device=dev), torch.eye(4, device=dev))
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)      # the capture's own synchronization
-        try:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):      # warm up: device constants, allocator
-                _lm_tail(*ins)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outs = _lm_tail(*ins)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-    return graph, ins, outs
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):          # warm up: device constants, allocator
+            _lm_tail(*ins)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = _lm_tail(*ins)
+    _TAIL_GRAPHS[dev] = (graph, ins, outs)
 
 
 def _damped_step(H, b, lam, Tcw):
-    """_lm_tail, through the device's CUDA graph on the card. Its outputs are
-    the graph's buffers: read them before the next call."""
-    if not (H.is_cuda and CUDA_GRAPH_TAIL):
+    """_lm_tail; on the card a replay of the device's graph (capture_tail),
+    whose outputs are its buffers: read them before the next call."""
+    if not H.is_cuda:
         return _lm_tail(H, b, lam, Tcw)
     if H.device not in _TAIL_GRAPHS:
-        _TAIL_GRAPHS[H.device] = _capture_tail(H.device)
+        raise RuntimeError(f"the pose LM's graph on {H.device} is not captured: call "
+                           f"pose_opt.capture_tail(device) outside any step (a Tracker does)")
     graph, ins, outs = _TAIL_GRAPHS[H.device]
     for dst, src in zip(ins, (H, b, lam, Tcw)):
         dst.copy_(src)

@@ -133,17 +133,17 @@ def topk(x: torch.Tensor, k: int, dim: int = -1):
     return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
 
 
-def fma(a, b, c) -> torch.Tensor:
-    """``a * b + c`` with one rounding to float32. With float32 tensors a and
-    b it is one float64 ``addcmul``: the operands widen inside the kernel,
-    their product is exact, and only the sum rounds (three launches where
-    the general form below takes six)."""
+def fma(a, b, c, value: float = 1.0) -> torch.Tensor:
+    """``value * a * b + c`` (value 1 or -1) with one rounding to float32.
+    With float32 tensors a and b it is one float64 ``addcmul``: the operands
+    widen inside the kernel, their product is exact, and only the sum rounds
+    (three launches where the general form below takes six)."""
     d = torch.float64
     if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and isinstance(c, torch.Tensor)
             and a.dtype == b.dtype == torch.float32):
-        return torch.addcmul(c.to(d), a, b).to(torch.float32)
+        return torch.addcmul(c.to(d), a, b, value=value).to(torch.float32)
     a, b, c = (torch.as_tensor(v) for v in (a, b, c))
-    return (a.to(d) * b.to(d) + c.to(d)).to(torch.float32)
+    return (value * a.to(d) * b.to(d) + c.to(d)).to(torch.float32)
 
 
 def nanmedian(x: torch.Tensor) -> torch.Tensor:
