@@ -49,6 +49,13 @@ EXCLUDED = {
                            "csrc/windowed_best2.cu",
     "tracking/tracker.py::TrackParams": "a pytree of traced scalars for jit; the port reads cfg",
     "tracking/tracker.py::TrackParams.from_config": "TrackParams' constructor (see TrackParams)",
+    "utils/profiling.py::StageTimer": "the port traces with the span recorder (utils/profiling.py: "
+                                      "span, Recorder), which replaced it",
+    "utils/profiling.py::StageTimer.stage": "see StageTimer; the port's is profiling.span",
+    "utils/profiling.py::StageTimer.summary": "see StageTimer; the port's is Recorder.summary",
+    "utils/profiling.py::StageTimer.report": "see StageTimer",
+    "utils/profiling.py::device_trace": "torch.profiler.profile itself; the recorder's spans are "
+                                        "its ranges",
 }
 
 

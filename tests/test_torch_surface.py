@@ -1,7 +1,7 @@
 """The port's surface against the JAX package's: the CLI (tests/test_aux.py::
 TestCLI and test_cli_flag_enables_head, run in-process on the CPU), the
 real-dataset loaders on fake TUM / KITTI / EuRoC trees, the native C++ I/O,
-the plots, the stage timer and device trace, and the sensor-fusion
+the plots, the span recorder under the profiler, and the sensor-fusion
 helpers."""
 
 import contextlib
@@ -27,7 +27,7 @@ from weiner_slamit_v2_torch.io import datasets as tds
 from weiner_slamit_v2_torch.models import posenet as tposenet
 from weiner_slamit_v2_torch.tracking.tracker import Tracker
 from weiner_slamit_v2_torch.utils import sensor_fusion as tsf
-from weiner_slamit_v2_torch.utils.profiling import StageTimer, device_trace
+from weiner_slamit_v2_torch.utils import profiling
 from weiner_slamit_v2_torch.viz import plotting
 
 torch.set_num_threads(1)
@@ -257,17 +257,22 @@ def test_plots_write_files(tmp_path):
 
 
 def test_stage_timer_and_trace_on_cpu(tmp_path):
-    timer = StageTimer()
-    for _ in range(3):
-        with timer.stage("matmul", block_on=(torch.ones(4) @ torch.ones(4), {"x": torch.zeros(1)})):
-            pass
-    s = timer.summary()
-    assert s["matmul"]["count"] == 3 and s["matmul"]["total_s"] >= 0
-    assert "matmul" in timer.report()
-    with device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert os.listdir(tmp_path / "trace")
+    """The span recorder, the port's one tracing code: host times per span
+    and the spans as ranges of a CPU profiler trace."""
+    rec = profiling.install(profiling.Recorder())
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            for _ in range(3):
+                with profiling.span("slam.matmul"):
+                    torch.ones(64, 64) @ torch.ones(64, 64)
+    finally:
+        assert profiling.uninstall() is rec
+    s = rec.summary()
+    assert s["slam.matmul"]["calls"] == 3 and s["slam.matmul"]["self_ms"] == s["slam.matmul"]["total_ms"] > 0
+    keys = {e.key: e.count for e in prof.key_averages()}
+    assert keys["slam.matmul"] == 3 and any("mm" in k for k in keys)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
 
 
 def test_sensor_fusion_matches_jax():

@@ -14,6 +14,7 @@ import torch
 from ..geometry import se3
 from ..ops import xla_math
 from ..util import fma
+from ..utils.profiling import span
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815     # 3-dof 95% gate (Optimizer.cc:310)
@@ -151,63 +152,64 @@ def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
     ur: (N,) the frame's stereo right-u per feature, -1 for a monocular one
     (mvuRight); bf: baseline x fx. Returns (Tcw (4,4), inliers (N,) bool,
     n_inliers ())."""
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    stereo = ur is not None
-    if stereo:
-        is_st = ur >= 0
-        delta2 = torch.where(is_st, CHI2_STEREO, CHI2_MONO)   # Huber delta^2 per feature
-        chi2_th = torch.where(is_st, CHI2_STEREO, chi2_th)
-    else:
-        delta2 = CHI2_MONO
-
-    def resid(Tcw):
-        out = _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur, bf)
-        if not stereo:
-            return (*out, None, None)
-        ru, rv, Ju, Jv, z, rur, Jur = out
-        return ru, rv, Ju, Jv, z, torch.where(is_st, rur, 0.0), Jur
-
-    def chi2_of(Tcw):
-        ru, rv, _, _, z, rur, _ = resid(Tcw)
-        c = ru * ru + rv * rv
+    with span("slam.pose_opt.optimize_pose"):
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        stereo = ur is not None
         if stereo:
-            c = c + rur * rur
-        return c * inv_sigma2, z
+            is_st = ur >= 0
+            delta2 = torch.where(is_st, CHI2_STEREO, CHI2_MONO)   # Huber delta^2 per feature
+            chi2_th = torch.where(is_st, CHI2_STEREO, chi2_th)
+        else:
+            delta2 = CHI2_MONO
 
-    def robust_cost(chi2, z, mask, robust):
-        rho = chi2
-        if robust:
-            rho = torch.where(chi2 <= delta2, chi2,
-                              2.0 * xla_math.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-        return torch.where(mask & (z > 0), rho, 0.0).sum()
+        def resid(Tcw):
+            out = _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur, bf)
+            if not stereo:
+                return (*out, None, None)
+            ru, rv, Ju, Jv, z, rur, Jur = out
+            return ru, rv, Ju, Jv, z, torch.where(is_st, rur, 0.0), Jur
 
-    Tcw, inliers = Tcw0, valid
-    for rnd in range(n_rounds):
-        robust = rnd < 2   # robust kernel off from round 2 (Optimizer.cc:432)
-        lam = torch.full((), lambda_init, dtype=torch.float32, device=Tcw0.device)
-        for _ in range(n_iters):
-            ru, rv, Ju, Jv, z, rur, Jur = resid(Tcw)
-            chi2 = (ru * ru + rv * rv) * inv_sigma2
+        def chi2_of(Tcw):
+            ru, rv, _, _, z, rur, _ = resid(Tcw)
+            c = ru * ru + rv * rv
             if stereo:
-                chi2 = chi2 + rur * rur * inv_sigma2
-            # the roots correctly rounded, as XLA's (torch's CPU float32 root is not)
-            wr = torch.where(chi2 <= delta2, 1.0, xla_math.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
-            w = inv_sigma2 * (wr if robust else 1.0)
-            w = torch.where(inliers & (z > 0), w, 0.0)
-            Juw, Jvw = Ju * w, Jv * w
-            H = Juw @ Ju.T + Jvw @ Jv.T
-            b = -(Juw @ ru + Jvw @ rv)
-            if stereo:
-                Jurw = Jur * (w * is_st)
-                H = H + Jurw @ Jur.T
-                b = b - Jurw @ rur
-            cost0 = robust_cost(chi2, z, inliers, robust)
-            dx, T_new = _damped_step(H, b, lam, Tcw)
-            c_new, z_new = chi2_of(T_new)
-            cost1 = robust_cost(c_new, z_new, inliers, robust)
-            accept = (cost1 < cost0) & torch.isfinite(cost1) & torch.isfinite(dx).all()
-            Tcw = torch.where(accept, T_new, Tcw)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-6, 1e3)
-        chi2, z = chi2_of(Tcw)
-        inliers = valid & (chi2 <= chi2_th) & (z > 0)
-    return se3.orthonormalize(Tcw), inliers, inliers.sum()
+                c = c + rur * rur
+            return c * inv_sigma2, z
+
+        def robust_cost(chi2, z, mask, robust):
+            rho = chi2
+            if robust:
+                rho = torch.where(chi2 <= delta2, chi2,
+                                  2.0 * xla_math.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
+            return torch.where(mask & (z > 0), rho, 0.0).sum()
+
+        Tcw, inliers = Tcw0, valid
+        for rnd in range(n_rounds):
+            robust = rnd < 2   # robust kernel off from round 2 (Optimizer.cc:432)
+            lam = torch.full((), lambda_init, dtype=torch.float32, device=Tcw0.device)
+            for _ in range(n_iters):
+                ru, rv, Ju, Jv, z, rur, Jur = resid(Tcw)
+                chi2 = (ru * ru + rv * rv) * inv_sigma2
+                if stereo:
+                    chi2 = chi2 + rur * rur * inv_sigma2
+                # the roots correctly rounded, as XLA's (torch's CPU float32 root is not)
+                wr = torch.where(chi2 <= delta2, 1.0, xla_math.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
+                w = inv_sigma2 * (wr if robust else 1.0)
+                w = torch.where(inliers & (z > 0), w, 0.0)
+                Juw, Jvw = Ju * w, Jv * w
+                H = Juw @ Ju.T + Jvw @ Jv.T
+                b = -(Juw @ ru + Jvw @ rv)
+                if stereo:
+                    Jurw = Jur * (w * is_st)
+                    H = H + Jurw @ Jur.T
+                    b = b - Jurw @ rur
+                cost0 = robust_cost(chi2, z, inliers, robust)
+                dx, T_new = _damped_step(H, b, lam, Tcw)
+                c_new, z_new = chi2_of(T_new)
+                cost1 = robust_cost(c_new, z_new, inliers, robust)
+                accept = (cost1 < cost0) & torch.isfinite(cost1) & torch.isfinite(dx).all()
+                Tcw = torch.where(accept, T_new, Tcw)
+                lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-6, 1e3)
+            chi2, z = chi2_of(Tcw)
+            inliers = valid & (chi2 <= chi2_th) & (z > 0)
+        return se3.orthonormalize(Tcw), inliers, inliers.sum()

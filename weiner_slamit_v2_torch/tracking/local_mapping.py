@@ -26,6 +26,7 @@ from ..slam_map.covisibility import covisibility_matrix
 from ..slam_map.point_stats import predict_octave, refresh_point_stats_touched
 from ..slam_map.types import SlamMap
 from ..util import nanmedian, put, put_last, topk
+from ..utils.profiling import span
 
 
 def _median_depth_of_kf(m: SlamMap, kf_id: int) -> torch.Tensor:
@@ -399,25 +400,31 @@ def mapping_pre(m: SlamMap, new_kf: int, K, scale_factors, sigma2, inv_sigma2, c
     if n_neighbors is None:
         n_neighbors = cfg.mapping.triangulation_neighbors
     if run_culling:
-        m = cull_map_points(m, new_kf, cfg)
-    vals, idx = topk(covisibility_matrix(m)[new_kf], min(n_neighbors, m.max_kf))
-    m = triangulate_with_neighbors(m, new_kf, idx, vals > 0, K, scale_factors, sigma2, cfg)
-    m = fuse_in_neighbors(m, new_kf, idx, vals > 0, K, scale_factors, sigma2, cfg)
+        with span("slam.mapping.cull_points"):
+            m = cull_map_points(m, new_kf, cfg)
+    with span("slam.mapping.triangulate"):
+        vals, idx = topk(covisibility_matrix(m)[new_kf], min(n_neighbors, m.max_kf))
+        m = triangulate_with_neighbors(m, new_kf, idx, vals > 0, K, scale_factors, sigma2, cfg)
+    with span("slam.mapping.fuse"):
+        m = fuse_in_neighbors(m, new_kf, idx, vals > 0, K, scale_factors, sigma2, cfg)
 
     # stats refresh of everything the new keyframe or a covisible one observes
     # (the covisibility row is taken AFTER the fuse: Replace winners move)
-    sel_kf = (covisibility_matrix(m)[new_kf] > 0) | (torch.arange(m.max_kf, device=m.device) == new_kf)
-    flat = torch.where((sel_kf & m.kf_valid)[:, None], m.kf_obs, -1).reshape(-1)
-    touched = put(torch.zeros(m.max_mp, dtype=torch.bool, device=m.device),
-                  torch.where(flat >= 0, flat, m.max_mp), True)
-    m = refresh_point_stats_touched(m, scale_factors, touched)
+    with span("slam.mapping.stats"):
+        sel_kf = ((covisibility_matrix(m)[new_kf] > 0)
+                  | (torch.arange(m.max_kf, device=m.device) == new_kf))
+        flat = torch.where((sel_kf & m.kf_valid)[:, None], m.kf_obs, -1).reshape(-1)
+        touched = put(torch.zeros(m.max_mp, dtype=torch.bool, device=m.device),
+                      torch.where(flat >= 0, flat, m.max_mp), True)
+        m = refresh_point_stats_touched(m, scale_factors, touched)
     if not run_ba:
         return m, None, None, None
-    prob, cam_ids, point_ids = extract_local_ba(
-        m, new_kf, K, inv_sigma2, window=cfg.capacity.local_ba_window,
-        n_fixed=cfg.capacity.local_ba_window, max_points=cfg.capacity.local_ba_points,
-        bf=cfg.camera.baseline_times_fx,
-    )
+    with span("slam.mapping.extract_ba"):
+        prob, cam_ids, point_ids = extract_local_ba(
+            m, new_kf, K, inv_sigma2, window=cfg.capacity.local_ba_window,
+            n_fixed=cfg.capacity.local_ba_window, max_points=cfg.capacity.local_ba_points,
+            bf=cfg.camera.baseline_times_fx,
+        )
     return m, prob, cam_ids, point_ids
 
 
@@ -426,11 +433,12 @@ def mapping_finish(m: SlamMap, new_kf: int, res, prob, cam_ids, point_ids, cfg: 
     """Write-back half of the pass (src/LocalMapping.cc:84-118): BA
     write-back (skipped when res is None, the pass aborted before its BA)
     -> keyframe culling -> one observation-list rebuild."""
-    if res is not None:
-        m = write_back_ba(m, res, prob, cam_ids, point_ids, rebuild=False)
-    if run_culling:
-        m = cull_keyframes(m, new_kf, cfg)
-    return mt.rebuild_observation_lists(m)
+    with span("slam.mapping.finish"):
+        if res is not None:
+            m = write_back_ba(m, res, prob, cam_ids, point_ids, rebuild=False)
+        if run_culling:
+            m = cull_keyframes(m, new_kf, cfg)
+        return mt.rebuild_observation_lists(m)
 
 
 def mapping_step(m: SlamMap, new_kf: int, K, scale_factors, sigma2, inv_sigma2,
@@ -440,7 +448,11 @@ def mapping_step(m: SlamMap, new_kf: int, K, scale_factors, sigma2, inv_sigma2,
     src/LocalMapping.cc:50-118) in one call: mapping_pre, the whole local BA
     (solve_ba), mapping_finish. The staged pass computes the same thing in
     pieces that can be abandoned."""
-    m, prob, cam_ids, point_ids = mapping_pre(m, new_kf, K, scale_factors, sigma2, inv_sigma2,
-                                              cfg, n_neighbors, run_ba, run_culling)
-    res = solve_ba(prob, cfg.optim.local_ba_iters1, cfg.optim.local_ba_iters2) if run_ba else None
-    return mapping_finish(m, new_kf, res, prob, cam_ids, point_ids, cfg, run_culling)
+    with span("slam.mapping.pass"):
+        m, prob, cam_ids, point_ids = mapping_pre(m, new_kf, K, scale_factors, sigma2, inv_sigma2,
+                                                  cfg, n_neighbors, run_ba, run_culling)
+        res = None
+        if run_ba:
+            with span("slam.mapping.local_ba"):
+                res = solve_ba(prob, cfg.optim.local_ba_iters1, cfg.optim.local_ba_iters2)
+        return mapping_finish(m, new_kf, res, prob, cam_ids, point_ids, cfg, run_culling)

@@ -55,6 +55,7 @@ from ..slam_map import checkpoint
 from ..slam_map.compaction import compact_map
 from ..slam_map.point_stats import refresh_point_stats
 from ..util import event_done, launched_event, resolve_device
+from ..utils.profiling import span
 from .local_mapping import mapping_finish, mapping_pre, mapping_step
 from .loop_closing import LoopCloser, _adopt_gba
 from .tracker import Tracker, TrackerOutput
@@ -97,6 +98,11 @@ class System:
         self._mapping_enqueued_frame = -(10**9)
         self._stage: Optional[dict] = None
         self.mapping_passes = 0      # adopted passes
+        # polls that found the latency spent but the pass not done on the
+        # device, and adoptions made with force=True (a forced keyframe
+        # insertion or a drain), which do not wait for the pass's event
+        self.adoptions_deferred = 0
+        self.adoptions_forced = 0
         self.staged_passes = 0       # staged passes that reached mapping_finish
         self.ba_chunks_issued = 0    # ba_phase1 + ba_phase2_chunk launches
         self.ba_chunks_aborted = 0   # the ones an abort skipped
@@ -124,7 +130,8 @@ class System:
         args = (t.m.to(md), kf_id, t.K.to(md), t.scale_factors.to(md), t.sigma2.to(md),
                 t.inv_sigma2.to(md), self.cfg)
         if self.cfg.tracking.abortable_ba:
-            m, prob, cam_ids, point_ids = mapping_pre(*args, n_neighbors=self.mapping_neighbors)
+            with span("slam.mapping.pass"):
+                m, prob, cam_ids, point_ids = mapping_pre(*args, n_neighbors=self.mapping_neighbors)
             self._stage = dict(name="pre", kf=kf_id, m=m, prob=prob, cam_ids=cam_ids,
                                point_ids=point_ids, ba_state=None,
                                chunks_left=self._n_ba_chunks, event=launched_event(md))
@@ -158,6 +165,11 @@ class System:
             return self._pending_map is not None
         if not (abort or eager or event_done(s["event"])):
             return False
+        with span("slam.mapping.pass"):
+            return self._launch_stage(s, abort)
+
+    def _launch_stage(self, s: dict, abort: bool) -> bool:
+        """_advance_stage's launch of the staged pass's next program."""
         o, t = self.cfg.optim, self.cfg.tracking
         if s["name"] == "pre":
             if abort or s["prob"] is None:
@@ -165,7 +177,8 @@ class System:
                 self.ba_chunks_aborted += s["chunks_left"] + 1
                 self._finish_stage(None)
                 return True
-            s["ba_state"] = ba_phase1(s["prob"], n_iters=o.local_ba_iters1)
+            with span("slam.mapping.local_ba"):
+                s["ba_state"] = ba_phase1(s["prob"], n_iters=o.local_ba_iters1)
             s["name"] = "ba"
             s["event"] = launched_event(self.mapping_device)
             self.ba_chunks_issued += 1
@@ -174,15 +187,18 @@ class System:
         if not abort and s["chunks_left"] > 0:
             first = s["chunks_left"] == self._n_ba_chunks
             lam = BA_LAMBDA_INIT if first else lam   # the refinement restarts its damping
-            s["ba_state"] = (*ba_phase2_chunk(s["prob"], cam_pose, points, lam, inlier,
-                                              n_iters=t.ba_chunk_iters), inlier)
+            with span("slam.mapping.local_ba"):
+                s["ba_state"] = (*ba_phase2_chunk(s["prob"], cam_pose, points, lam, inlier,
+                                                  n_iters=t.ba_chunk_iters), inlier)
             s["chunks_left"] -= 1
             s["event"] = launched_event(self.mapping_device)
             self.ba_chunks_issued += 1
             return False
         # every chunk ran, or an abort: finalize the best state so far
         self.ba_chunks_aborted += s["chunks_left"] if abort else 0
-        self._finish_stage(ba_finalize(s["prob"], cam_pose, points))
+        with span("slam.mapping.local_ba"):
+            res = ba_finalize(s["prob"], cam_pose, points)
+        self._finish_stage(res)
         return True
 
     def mapper_idle(self, force: bool = False, abort: bool = False) -> bool:
@@ -217,6 +233,7 @@ class System:
         if not force and busy < self.cfg.tracking.mapping_latency_frames:
             return False
         if not (force or chained or event_done(self._pending_event)):
+            self.adoptions_deferred += 1
             return False
         # resolve the pipelined frames before the swap: a late keyframe
         # decision freezes into the map those frames were tracked on. The
@@ -226,21 +243,24 @@ class System:
         self.tracker.flush_pending()
         if self._pending_kf != kf_token:
             return self._pending_map is None and self._stage is None
-        t = self.tracker
-        m, kf_id = self._pending_map.to(self.device), self._pending_kf
-        snap_v, snap_f = self._pending_counters
-        self._pending_map = self._pending_event = self._pending_counters = None
-        self._pending_kf = -1
-        m = m.replace(mp_visible=m.mp_visible + (t.m.mp_visible - snap_v),
-                      mp_found=m.mp_found + (t.m.mp_found - snap_f))
-        prev_kf_valid = t.m.kf_valid
-        t.m = m
-        self.mapping_passes += 1
-        self._reanchor_culled_trajectory(prev_kf_valid)
-        if t.ref_kf == kf_id and t.last_kf_frame == t.frame_id:
-            t.last_Tcw = t.m.kf_pose[kf_id]
-        if self.loop_closer is not None:
-            self.loop_closer.on_keyframe(kf_id)
+        with span("slam.system.adopt"):
+            t = self.tracker
+            m, kf_id = self._pending_map.to(self.device), self._pending_kf
+            snap_v, snap_f = self._pending_counters
+            self._pending_map = self._pending_event = self._pending_counters = None
+            self._pending_kf = -1
+            m = m.replace(mp_visible=m.mp_visible + (t.m.mp_visible - snap_v),
+                          mp_found=m.mp_found + (t.m.mp_found - snap_f))
+            prev_kf_valid = t.m.kf_valid
+            t.m = m
+            self.mapping_passes += 1
+            if force:
+                self.adoptions_forced += 1
+            self._reanchor_culled_trajectory(prev_kf_valid)
+            if t.ref_kf == kf_id and t.last_kf_frame == t.frame_id:
+                t.last_Tcw = t.m.kf_pose[kf_id]
+            if self.loop_closer is not None:
+                self.loop_closer.on_keyframe(kf_id)
         return True
 
     def _reanchor_culled_trajectory(self, prev_kf_valid) -> None:
@@ -331,31 +351,35 @@ class System:
         the keyframe pool is nearly full and at least 2 slots can be
         reclaimed; without reclaimable slots insertion just stays blocked
         (``_need_new_keyframe``) until culling frees some."""
-        self.mapper_idle()
-        if self.loop_closer is not None and self._pending_map is None and self._stage is None:
-            self.loop_closer.poll_global_ba()
-        t = self.tracker
-        if t.n_kf_host >= t.m.max_kf - 2 and t.n_kf_host - int(t.m.kf_valid.sum()) >= 2:
-            self.compact()
+        with span("slam.system.pre_frame"):
+            self.mapper_idle()
+            if self.loop_closer is not None and self._pending_map is None and self._stage is None:
+                self.loop_closer.poll_global_ba()
+            t = self.tracker
+            if t.n_kf_host >= t.m.max_kf - 2 and t.n_kf_host - int(t.m.kf_valid.sum()) >= 2:
+                self.compact()
 
     def track_monocular(self, image: np.ndarray, timestamp: float) -> TrackerOutput:
         """Per-frame entry (System::TrackMonocular, src/System.cc:307-361).
         image: (H, W) grayscale, uint8 or float."""
-        self._pre_frame()
-        return self.tracker.process_frame(_frame(image), timestamp)
+        with span("slam.system.frame", self.tracker):
+            self._pre_frame()
+            return self.tracker.process_frame(_frame(image), timestamp)
 
     def track_rgbd(self, image: np.ndarray, depth: np.ndarray, timestamp: float) -> TrackerOutput:
         """RGB-D entry (System::TrackRGBD, src/System.cc:260-305): image as
         in track_monocular, depth (H, W) meters (0 = no measurement)."""
-        self._pre_frame()
-        return self.tracker.process_frame(_frame(image), timestamp,
-                                          depth=np.asarray(depth, np.float32))
+        with span("slam.system.frame", self.tracker):
+            self._pre_frame()
+            return self.tracker.process_frame(_frame(image), timestamp,
+                                              depth=np.asarray(depth, np.float32))
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float) -> TrackerOutput:
         """Stereo entry (System::TrackStereo, src/System.cc:215-258): a
         rectified pair; uint8 frames pass as uint8."""
-        self._pre_frame()
-        return self.tracker.process_frame(_frame(left), timestamp, image_right=_frame(right))
+        with span("slam.system.frame", self.tracker):
+            self._pre_frame()
+            return self.tracker.process_frame(_frame(left), timestamp, image_right=_frame(right))
 
     def distributed_gba(self, mesh=None, iters: int | None = None):
         """The full-map global BA sharded over a mesh's ranks and adopted into

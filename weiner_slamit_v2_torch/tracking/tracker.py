@@ -61,6 +61,7 @@ from ..slam_map.covisibility import covisibility_matrix
 from ..slam_map.point_stats import predict_octave, refresh_point_stats
 from ..slam_map.types import SlamMap
 from ..util import nanmedian, put, resolve_device, topk
+from ..utils.profiling import span
 
 NO_IMAGES_YET = "NO_IMAGES_YET"
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -341,45 +342,50 @@ def track_step(m: SlamMap, feats: FrameFeatures, last_obs, last_octave, last_ang
     (-1 = none), for the stereo rows of both pose LMs and the one-sided
     octave gate; depth (N,): per-feature depth, for the close-point counts
     of the stereo keyframe gate (Tracking.cc:1238-1283)."""
-    t, mc, o = cfg.tracking, cfg.matcher, cfg.optim
-    n_levels, hb = cfg.orb.n_levels, mc.histo_length
-    Tcw_pred = se3.matmul(velocity, last_Tcw) if velocity is not None else last_Tcw
-    # stereo/RGB-D search window th=7, mono 15 (Tracking.cc:1108)
-    window = 7.0 if cfg.sensor != "monocular" else t.motion_search_window
-    fwd = bwd = None
-    if ur is not None and velocity is not None:
-        # forward / backward motion: tz of last -> current against the
-        # baseline (ORBmatcher.cc:1352-1360)
-        tz = (Tcw_pred @ se3.inv(last_Tcw))[2, 3]
-        base = bf / K[0, 0]
-        fwd, bwd = tz > base, -tz > base
+    with span("slam.tracker.step"):
+        t, mc, o = cfg.tracking, cfg.matcher, cfg.optim
+        n_levels, hb = cfg.orb.n_levels, mc.histo_length
+        Tcw_pred = se3.matmul(velocity, last_Tcw) if velocity is not None else last_Tcw
+        # stereo/RGB-D search window th=7, mono 15 (Tracking.cc:1108)
+        window = 7.0 if cfg.sensor != "monocular" else t.motion_search_window
+        fwd = bwd = None
+        if ur is not None and velocity is not None:
+            # forward / backward motion: tz of last -> current against the
+            # baseline (ORBmatcher.cc:1352-1360)
+            tz = (Tcw_pred @ se3.inv(last_Tcw))[2, 3]
+            base = bf / K[0, 0]
+            fwd, bwd = tz > base, -tz > base
 
-    def motion(window):
-        return _track_last_frame(m, feats, last_obs, last_octave, last_angle, Tcw_pred, K,
-                                 window, scale_factors, n_levels, mc.nn_ratio_motion,
-                                 mc.th_high, hb, fwd, bwd)
+        def motion(window):
+            return _track_last_frame(m, feats, last_obs, last_octave, last_angle, Tcw_pred, K,
+                                     window, scale_factors, n_levels, mc.nn_ratio_motion,
+                                     mc.th_high, hb, fwd, bwd)
 
-    obs_a, n_a = motion(window)
-    obs_w, n_w = motion(2.0 * window)               # widen 2x (Tracking.cc:1108-1121)
-    widen = n_a < t.min_matches_motion
-    obs_b, n_b = torch.where(widen, obs_w, obs_a), torch.where(widen, n_w, n_a)
-    need_ref = n_b < t.min_matches_motion           # TrackReferenceKeyFrame (Tracking.cc:449)
-    obs_r, n_r = _match_reference_kf(m, feats, ref_kf, mc.nn_ratio_refkf, mc.th_low, hb)
-    obs_c, n_c = torch.where(need_ref, obs_r, obs_b), torch.where(need_ref, n_r, n_b)
-    Tcw0 = torch.where(need_ref, last_Tcw, Tcw_pred)
-    enough = n_c >= torch.where(need_ref, t.min_matches_refkf, t.min_matches_motion)
+        with span("slam.tracker.motion_match"):
+            obs_a, n_a = motion(window)
+            obs_w, n_w = motion(2.0 * window)               # widen 2x (Tracking.cc:1108-1121)
+        widen = n_a < t.min_matches_motion
+        obs_b, n_b = torch.where(widen, obs_w, obs_a), torch.where(widen, n_w, n_a)
+        need_ref = n_b < t.min_matches_motion           # TrackReferenceKeyFrame (Tracking.cc:449)
+        with span("slam.tracker.refkf_match"):
+            obs_r, n_r = _match_reference_kf(m, feats, ref_kf, mc.nn_ratio_refkf, mc.th_low, hb)
+        obs_c, n_c = torch.where(need_ref, obs_r, obs_b), torch.where(need_ref, n_r, n_b)
+        Tcw0 = torch.where(need_ref, last_Tcw, Tcw_pred)
+        enough = n_c >= torch.where(need_ref, t.min_matches_refkf, t.min_matches_motion)
 
-    Tcw1, obs, n_i1 = _pose_opt_on_obs(m, feats, obs_c, Tcw0, K, inv_sigma2,
-                                       o.pose_opt_rounds, o.pose_opt_iters, o.lm_lambda_init, ur, bf)
-    ok1 = enough & (n_i1 >= t.min_inliers_motion)
-    obs, visible = _track_local_map(
-        m, feats, obs, Tcw1, K, scale_factors, local_th, n_levels, mc.nn_ratio_localmap,
-        mc.th_high, cfg.capacity.local_ba_points, t.local_map_kf_cap, bounds,
-    )
-    Tcw2, obs, n_i2 = _pose_opt_on_obs(m, feats, obs, Tcw1, K, inv_sigma2,
-                                       o.pose_opt_rounds, o.pose_opt_iters, o.lm_lambda_init, ur, bf)
-    return _step_tail(m, feats, obs, visible, ok1, n_c, need_ref, n_i1, n_i2, Tcw2, last_Tcw,
-                      ref_kf, depth, depth_threshold)
+        Tcw1, obs, n_i1 = _pose_opt_on_obs(m, feats, obs_c, Tcw0, K, inv_sigma2, o.pose_opt_rounds,
+                                           o.pose_opt_iters, o.lm_lambda_init, ur, bf)
+        ok1 = enough & (n_i1 >= t.min_inliers_motion)
+        with span("slam.tracker.local_map"):
+            obs, visible = _track_local_map(
+                m, feats, obs, Tcw1, K, scale_factors, local_th, n_levels, mc.nn_ratio_localmap,
+                mc.th_high, cfg.capacity.local_ba_points, t.local_map_kf_cap, bounds,
+            )
+        Tcw2, obs, n_i2 = _pose_opt_on_obs(m, feats, obs, Tcw1, K, inv_sigma2, o.pose_opt_rounds,
+                                           o.pose_opt_iters, o.lm_lambda_init, ur, bf)
+        with span("slam.tracker.step_tail"):
+            return _step_tail(m, feats, obs, visible, ok1, n_c, need_ref, n_i1, n_i2, Tcw2,
+                              last_Tcw, ref_kf, depth, depth_threshold)
 
 
 def _step_tail(m: SlamMap, feats: FrameFeatures, obs, visible, ok1, n_c, need_ref, n_i1, n_i2,
@@ -748,9 +754,10 @@ class Tracker:
         self.posenet = params.to(self.device)
 
     def _extract(self, image: torch.Tensor, initializing: bool) -> FrameFeatures:
-        ex = self.init_extractor if initializing else self.extractor
-        feats = ex(image)
-        return feats.replace(xy_und=self.camera.undistort_points(feats.xy))
+        with span("slam.frontend.extract"):
+            ex = self.init_extractor if initializing else self.extractor
+            feats = ex(image)
+            return feats.replace(xy_und=self.camera.undistort_points(feats.xy))
 
     def process_frame(self, image, timestamp: float, depth=None, image_right=None) -> TrackerOutput:
         """Track one (H, W) uint8 or float32 frame. ``depth`` (H, W) meters
@@ -955,7 +962,8 @@ class Tracker:
         # first, so the trajectory stays in order
         if self._pending_frames:
             self._resolve_pending()
-        s = r.scalars.tolist()      # the one host read of the frame
+        with span("slam.tracker.read"):
+            s = r.scalars.tolist()      # the one host read of the frame
         self.m = r.m
         min_local = t.min_inliers_localmap_reloc if recent_reloc else t.min_inliers_localmap
         if not s[S_OK1] or s[S_N_INL2] < min_local:
@@ -1065,7 +1073,8 @@ class Tracker:
             return
         self._pending_frames = []
         batch_counters, self._batch_counters = self._batch_counters, None
-        rows = self._scalar_rows(recs[:n_res])
+        with span("slam.tracker.read"):
+            rows = self._scalar_rows(recs[:n_res])
         t = self.cfg.tracking
         last_created_fid = None
         for i, (rec, s) in enumerate(zip(recs, rows)):
@@ -1173,39 +1182,41 @@ class Tracker:
         record's)."""
         if self.n_kf_host >= self.m.max_kf:
             return
-        fid = self.frame_id if frame_id is None else frame_id
-        if depth is None:
-            depth = self._cur_depth
-        if depth is not None:
-            self.m, kf = freeze_kf_depth(
-                self.m, Tcw, feats, cur_obs, fid, ts, self.ref_kf, depth,
-                self.camera, self.depth_threshold, self.scale_factors, self.bf)
-        else:
-            self.m, kf = mt.add_keyframe(
-                self.m, Tcw, feats.xy_und, feats.octave, feats.angle, feats.desc,
-                feats.valid, cur_obs, fid, ts, self.ref_kf)
-        self.n_kf_host += 1
-        self.ref_kf = kf
-        self.last_kf_frame = fid
-        self._register_kf_bow(kf)
-        if self.mapping_hook is not None:
-            self.mapping_hook(kf)
+        with span("slam.tracker.new_keyframe"):
+            fid = self.frame_id if frame_id is None else frame_id
+            if depth is None:
+                depth = self._cur_depth
+            if depth is not None:
+                self.m, kf = freeze_kf_depth(
+                    self.m, Tcw, feats, cur_obs, fid, ts, self.ref_kf, depth,
+                    self.camera, self.depth_threshold, self.scale_factors, self.bf)
+            else:
+                self.m, kf = mt.add_keyframe(
+                    self.m, Tcw, feats.xy_und, feats.octave, feats.angle, feats.desc,
+                    feats.valid, cur_obs, fid, ts, self.ref_kf)
+            self.n_kf_host += 1
+            self.ref_kf = kf
+            self.last_kf_frame = fid
+            self._register_kf_bow(kf)
+            if self.mapping_hook is not None:
+                self.mapping_hook(kf)
 
     def _register_kf_bow(self, kf: int) -> None:
         """Add the keyframe to the recognition database; train the
         vocabulary at 4 keyframes, retrain it at 16 and 64 on every keyframe
         slot (a pre-trained vocabulary is never retrained)."""
-        m = self.m
-        self.bow.add(kf, m.kf_desc[kf], m.kf_feat_valid[kf])
-        n = self.n_kf_host
-        if not self.bow.ready and n >= 4:
-            self.bow.maybe_train(m.kf_desc[:n].reshape(-1, 8), m.kf_feat_valid[:n].reshape(-1),
-                                 self.vocab_draws(self.cfg.seed + 7, n * m.n_feat))
-            self.vocab_trainings.append((n, self.frame_id))
-        elif n in (16, 64) and not self.bow.pretrained:
-            self.bow.retrain(m.kf_desc, m.kf_feat_valid, m.kf_valid,
-                             self.vocab_draws(self.cfg.seed + 7 + n, m.max_kf * m.n_feat))
-            self.vocab_trainings.append((n, self.frame_id))
+        with span("slam.bow.register"):
+            m = self.m
+            self.bow.add(kf, m.kf_desc[kf], m.kf_feat_valid[kf])
+            n = self.n_kf_host
+            if not self.bow.ready and n >= 4:
+                self.bow.maybe_train(m.kf_desc[:n].reshape(-1, 8), m.kf_feat_valid[:n].reshape(-1),
+                                     self.vocab_draws(self.cfg.seed + 7, n * m.n_feat))
+                self.vocab_trainings.append((n, self.frame_id))
+            elif n in (16, 64) and not self.bow.pretrained:
+                self.bow.retrain(m.kf_desc, m.kf_feat_valid, m.kf_valid,
+                                 self.vocab_draws(self.cfg.seed + 7 + n, m.max_kf * m.n_feat))
+                self.vocab_trainings.append((n, self.frame_id))
 
     def _reloc_candidates(self, feats: FrameFeatures) -> list[int]:
         """BoW candidate keyframes (KeyFrameDatabase::
@@ -1243,26 +1254,28 @@ class Tracker:
         """Tracking::Relocalization (src/Tracking.cc:1628-1833): BoW
         candidates, then each one's cascade; accept the best at >=
         reloc_min_inliers inliers."""
-        cfg = self.cfg
-        cands = self._reloc_candidates(feats)
-        if not cands:
-            return TrackerOutput(LOST, None, 0, False)
-        fid = self.frame_id
-        n_good, Tcws, obs = _reloc_program(
-            self.m, feats, cands, lambda k, n: self.pnp_draws(fid, k, n), self.K,
-            self.inv_sigma2, self.scale_factors, cfg.matcher.nn_ratio_bow, cfg.matcher.th_low,
-            cfg.orb.n_levels, cfg.matcher.histo_length, cfg.tracking.reloc_min_inliers,
-            ur=self._cur_ur, bf=self.bf,
-        )
-        self.last_reloc_attempt = dict(frame=fid, candidates=cands, n_good=n_good)
-        b = int(np.argmax(n_good))
-        if n_good[b] < cfg.tracking.reloc_min_inliers:
-            return TrackerOutput(LOST, None, n_good[b], False)
-        self.state = OK
-        self.last_Tcw, self.last_feats, self.last_obs = Tcws[b], feats, obs[b]
-        self.velocity = None
-        self.last_reloc_frame = fid
-        return TrackerOutput(OK, Tcws[b], n_good[b], False)
+        with span("slam.tracker.relocalize"):
+            cfg = self.cfg
+            with span("slam.tracker.reloc_candidates"):
+                cands = self._reloc_candidates(feats)
+            if not cands:
+                return TrackerOutput(LOST, None, 0, False)
+            fid = self.frame_id
+            n_good, Tcws, obs = _reloc_program(
+                self.m, feats, cands, lambda k, n: self.pnp_draws(fid, k, n), self.K,
+                self.inv_sigma2, self.scale_factors, cfg.matcher.nn_ratio_bow, cfg.matcher.th_low,
+                cfg.orb.n_levels, cfg.matcher.histo_length, cfg.tracking.reloc_min_inliers,
+                ur=self._cur_ur, bf=self.bf,
+            )
+            self.last_reloc_attempt = dict(frame=fid, candidates=cands, n_good=n_good)
+            b = int(np.argmax(n_good))
+            if n_good[b] < cfg.tracking.reloc_min_inliers:
+                return TrackerOutput(LOST, None, n_good[b], False)
+            self.state = OK
+            self.last_Tcw, self.last_feats, self.last_obs = Tcws[b], feats, obs[b]
+            self.velocity = None
+            self.last_reloc_frame = fid
+            return TrackerOutput(OK, Tcws[b], n_good[b], False)
 
     def reset(self) -> None:
         """Tracking::Reset (src/Tracking.cc:1835-1870): a fresh map, BoW index

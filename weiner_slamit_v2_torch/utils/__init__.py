@@ -1,1 +1,1 @@
-"""utils (PyTorch port of weiner_slamit_v2_tpu/utils): timing, tracing, sensor fusion."""
+"""utils (PyTorch port of weiner_slamit_v2_tpu/utils): the span recorder, sensor fusion."""
