@@ -146,11 +146,11 @@ Phases (each failure ends the run with a non-zero exit code):
      port's contract; 7-9 within the bound the CPU audit measured for the
      port against JAX, 0) and prints each stage's largest float difference
      in ulps. Then optimize_pose at 1024 matches: device time, host time and
-     launches as the port runs it (the iteration's exact tail replayed as
-     the CUDA graph a Tracker captures when it is built; the device time of
-     that form from events around the graph's replays), eagerly, and eagerly
-     with the library Cholesky solve it replaced (kept in this file); the
-     graph's pose equals the eager one.
+     launches as the port runs it (csrc/pose_lm.cu, one launch), in its
+     plain form (eager) and in the plain form with the library Cholesky
+     solve it replaced (kept in this file); the kernel's time at n_iters 0
+     gives one iteration's; the kernel's pose within 5e-5 of the plain
+     form's.
 The kernel launch counts of phases 5, 7-17, 20, 21 and of each run of phase 19
 are each read from zero. With phase numbers as arguments (``python3
 chip_smoke.py 9 10``) only those of phases 7-21 run, after phases 1-6
@@ -558,16 +558,18 @@ def workload(n_frames: int, cam: dict | None = None, seq: dict | None = None, **
 
 
 def reset_launches() -> None:
-    from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+    from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel, pose_lm_kernel
 
     fast_kernel.launches = 0
     match_kernel.launches = 0
+    pose_lm_kernel.launches = 0
 
 
 def read_launches() -> dict:
-    from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel
+    from weiner_slamit_v2_torch.ops import fast_kernel, match_kernel, pose_lm_kernel
 
-    return {"fast_score_nms": fast_kernel.launches, "windowed_best2": match_kernel.launches}
+    return {"fast_score_nms": fast_kernel.launches, "windowed_best2": match_kernel.launches,
+            "pose_lm": pose_lm_kernel.launches}
 
 
 def ok_frames_ate(sys_, states, gt, first: int = 0) -> float:
@@ -2158,52 +2160,51 @@ def pose_problem(n: int, dev):
 
 
 def time_optimize_pose(dev, card: str) -> dict:
-    """optimize_pose at POSE_MATCHES matches as the port runs it (solve6, the
-    iteration's tail replayed as the CUDA graph a Tracker captures), eagerly
-    (_damped_step replaced by the tail itself), and eagerly with the library
-    solve it replaced: host time (events around 100 calls from Python; 10 for
-    the eager forms, ~0.5 s a call), launches, device time, the poses they
-    reach. The eager forms' device time is that of a graph of 2 calls
-    (device_ms). The graph form cannot be captured (a graph being captured
-    cannot replay the tail's graph), so its device time is the eager form's
-    with each of its n_rounds x n_iters = 40 tails' device time (device_ms of
-    the tail) replaced by one replay's: events around 100 back-to-back
-    replays, which the host enqueues faster than the card runs them."""
+    """optimize_pose at POSE_MATCHES matches as the port runs it on the card
+    (csrc/pose_lm.cu, one launch a call) beside its plain form
+    (optimize_pose_plain, eager) and the plain form with the library solve
+    it replaced: host time (events around 100 calls issued from Python; 10
+    for the plain forms, ~0.5 s a call), launches, device time (device_ms: a
+    graph of the calls replayed), the poses they reach. The kernel's device
+    time also at n_iters 0 (staging, reclassification, orthonormalization):
+    the difference over the 40 iterations is one iteration's two block
+    reductions and one thread's solve, the serial chain that bounds it."""
+    from weiner_slamit_v2_torch.ops import pose_lm_kernel
     from weiner_slamit_v2_torch.optim import pose_opt
 
     args = pose_problem(POSE_MATCHES, dev)
-    pose_opt.capture_tail(dev)
-    exact, damped, rows = pose_opt.solve6, pose_opt._damped_step, {}
-    for name, solve, step, reps in (("solve6, tail graph", exact, damped, 100),
-                                    ("solve6, eager", exact, pose_opt._lm_tail, 10),
-                                    ("library Cholesky, eager", solve6_library, pose_opt._lm_tail, 10)):
-        pose_opt.solve6, pose_opt._damped_step = solve, step
+    exact, rows = pose_opt.solve6, {}
+    for name, lm, solve, reps in (("kernel", pose_opt.optimize_pose, exact, 100),
+                                  ("plain", pose_opt.optimize_pose_plain, exact, 10),
+                                  ("plain, library Cholesky", pose_opt.optimize_pose_plain,
+                                   solve6_library, 10)):
+        pose_opt.solve6 = solve
         try:
-            fn = lambda: pose_opt.optimize_pose(*args)   # noqa: E731
+            fn = lambda: lm(*args)   # noqa: E731
+            n0 = pose_lm_kernel.launches
             T, inl, n = fn()
-            row = dict(host_ms=eager_ms(fn, reps=reps, loops=1), launches=runtime_launches(fn),
-                       inliers=int(n))
-            if step is not damped:
-                row["device_ms"] = device_ms(fn, reps=2, loops=3)
+            row = dict(pose_lm_launches=pose_lm_kernel.launches - n0,
+                       host_ms=eager_ms(fn, reps=reps, loops=1), launches=runtime_launches(fn),
+                       inliers=int(n), device_ms=device_ms(fn, reps=reps if name == "kernel" else 2,
+                                                           loops=3))
             rows[name] = (row, T.cpu())
         finally:
-            pose_opt.solve6, pose_opt._damped_step = exact, damped
+            pose_opt.solve6 = exact
         log(f"fed: optimize_pose at {POSE_MATCHES} matches (4 x 10 LM iterations), {name}: "
             f"{json.dumps(row)} on {card}")
-    H = torch.eye(6, device=dev) * 1e4 + 1e2
-    tail = (H, torch.ones(6, device=dev), torch.full((), 1e-3, device=dev), args[0])
-    tail_eager = device_ms(lambda: pose_opt._lm_tail(*tail), reps=20, loops=3)
-    tail_replay = eager_ms(lambda: pose_opt._damped_step(*tail), reps=100, loops=3)
-    a = rows["solve6, tail graph"][0]
-    a["device_ms"] = rows["solve6, eager"][0]["device_ms"] - 40 * (tail_eager - tail_replay)
-    log(f"fed: the iteration's tail: eager device {tail_eager:.5f} ms, one replay of its graph "
-        f"{tail_replay:.5f} ms (events around 100 replays); optimize_pose with the graph: device "
-        f"{a['device_ms']:.5f} ms (the eager form's less 40 x the difference) on {card}")
-    T0 = rows["solve6, tail graph"][1]
-    log(f"fed: the poses' largest difference from the graph's: " + json.dumps(
+    a = rows["kernel"][0]
+    fixed = device_ms(lambda: pose_opt.optimize_pose(*args, n_iters=0), reps=100, loops=3)
+    a["iteration_ms"] = (a["device_ms"] - fixed) / 40
+    log(f"fed: the kernel at n_iters 0: device {fixed:.5f} ms; one LM iteration (two block "
+        f"reductions, one thread's solve): {a['iteration_ms']:.5f} ms on {card}")
+    T0 = rows["kernel"][1]
+    log(f"fed: the poses' largest difference from the kernel's: " + json.dumps(
         {k: float((T - T0).abs().max()) for k, (_, T) in rows.items()}))
     check(a["inliers"] > 0.8 * POSE_MATCHES and bool(torch.isfinite(T0).all()), str(a))
-    check(torch.equal(rows["solve6, eager"][1], T0), "fed: the graph's pose differs from the eager one")
+    check(a["launches"] == {"kernels": 1, "graphs": 0} and a["pose_lm_launches"] == 1,
+          f"fed: the kernel's launches {a}")
+    check(float((rows["plain"][1] - T0).abs().max()) <= 5e-5 * float(T0.abs().max()),
+          "fed: the kernel's pose parts from the plain form's")
     return a
 
 

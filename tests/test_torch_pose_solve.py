@@ -18,8 +18,9 @@ tests/conftest.py runs it):
   fused multiply-add (vfnmadd in the object code) and x5 folded to
   s / max(s55, 1e-20) by XLA's simplifier.
 
-The ``cuda`` cases hold the card's results against the CPU port's; they
-import no JAX:
+The ``cuda`` cases hold the card's solve and exponential against the CPU
+port's, and the pose LM's kernel (csrc/pose_lm.cu) against the plain form on
+the card and the float64 reference LM; they import no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_pose_solve.py
 """
 
@@ -218,33 +219,174 @@ def test_card_equals_cpu():
     assert torch.equal(se3.orthonormalize(R.cuda()).cpu(), se3.orthonormalize(R))
 
 
-@pytest.mark.cuda
-def test_card_graph_tail_equals_eager():
-    """The LM iteration's tail replayed as a CUDA graph gives the eager
-    tail's bits, and so does the whole optimize_pose."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
+def card_problem(case: str):
+    """optimize_pose's arguments (CPU tensors) and keyword arguments for a
+    case of the kernel tests: points 3-8 m ahead seen at 0.7 px noise, 5 %
+    outliers, octaves 0-3, 5 % of the observations invalid."""
+    n = 1000 if case == "n_1000" else 1024
     rng = np.random.default_rng(3)
-    n = 1024
     X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(3, 8, n)], 1)
     uv = X[:, :2] / X[:, 2:] * 500.0 + np.array([320.0, 240.0]) + rng.normal(0, 0.7, (n, 2))
+    out = rng.random(n) < 0.05
+    uv[out] += rng.uniform(-40, 40, (int(out.sum()), 2))
+    valid = rng.random(n) > 0.05
+    kw = {}
+    if case == "stereo":   # 60 % with a right-u, the rest monocular rows
+        ur = (uv[:, 0] - 40.0 / X[:, 2] + rng.normal(0, 0.5, n)).astype(np.float32)
+        ur[rng.random(n) < 0.4] = -1.0
+        kw = dict(ur=torch.from_numpy(ur), bf=40.0)
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "behind_camera":
+        X[:100, 2] *= -1.0
+    if case == "short":
+        kw = dict(n_rounds=2, n_iters=3)
+    # far off, the robust rounds reject steps from their fifth iteration on
+    xi = [0.6, -0.3, 0.8, 0.25, -0.2, 0.1] if case == "far_start" else [0.05, 0.0, 0.03, 0.008, -0.004, 0.002]
     K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1]], np.float32)
-    args = [se3.exp(torch.tensor([0.05, 0.0, 0.03, 0.008, -0.004, 0.002])),
-            torch.from_numpy(X.astype(np.float32)), torch.from_numpy(uv.astype(np.float32)),
-            torch.ones(n), torch.ones(n, dtype=torch.bool), torch.from_numpy(K)]
-    args = [a.cuda() for a in args]
-    pose_opt.capture_tail("cuda")
-    for A, b in spd_systems(20):
-        H, bb = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
-        lam, T = torch.full((), 1e-3, device="cuda"), args[0]
-        eager = pose_opt._lm_tail(H, bb, lam, T)
-        graph = pose_opt._damped_step(H, bb, lam, T)
-        assert all(torch.equal(e, g) for e, g in zip(eager, graph))
-    with_graph = pose_opt.optimize_pose(*args)
-    real = pose_opt._damped_step
-    pose_opt._damped_step = pose_opt._lm_tail
-    try:
-        eager = pose_opt.optimize_pose(*args)
-    finally:
-        pose_opt._damped_step = real
-    assert all(torch.equal(e, g) for e, g in zip(eager, with_graph))
+    args = [se3.exp(torch.tensor(xi)), torch.from_numpy(X.astype(np.float32)),
+            torch.from_numpy(uv.astype(np.float32)),
+            torch.from_numpy((1.0 / 1.44 ** rng.integers(0, 4, n)).astype(np.float32)),
+            torch.from_numpy(valid), torch.from_numpy(K)]
+    return args, kw
+
+
+KERNEL_CASES = ["mono_1024", "stereo", "n_1000", "all_invalid", "behind_camera", "far_start", "short"]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _to(dev, args, kw):
+    return [a.to(dev) for a in args], {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES)
+def test_card_kernel_matches_eager(case):
+    """The kernel (one launch) against the plain form on the card: the pose
+    within 5e-5 of its largest entry, the inlier masks equal except where a
+    feature's chi2 lies within 1e-4 of its threshold, and the float64
+    reference LM's cost excess at the kernel's pose under 1e-4. The two sum
+    H, b and the costs in different orders, and the float32 LM's pose moves
+    with the order alone: the plain form on the CPU, fed these cases'
+    observations permuted, moves by up to 1.2e-5 of the largest entry
+    (``far_start``, ``short``)."""
+    from slambench.reference import stages
+
+    from weiner_slamit_v2_torch.ops import pose_lm_kernel
+
+    dev = _card()
+    args, kw = _to(dev, *card_problem(case))
+    n0 = pose_lm_kernel.launches
+    T, inl, n_inl = pose_opt.optimize_pose(*args, **kw)
+    assert pose_lm_kernel.launches == n0 + 1
+    Te, inl_e, _ = pose_opt.optimize_pose_plain(*args, **kw)
+    assert (T.dtype, inl.dtype, n_inl.dtype) == (torch.float32, torch.bool, torch.int64)
+    assert (T.shape, inl.shape, n_inl.shape) == ((4, 4), args[1].shape[:1], ())
+    assert int(n_inl) == int(inl.sum())
+    assert float((T - Te).abs().max()) <= 5e-5 * float(Te.abs().max())
+    X, uv, w, valid, K = (a.cpu() for a in args[1:])
+    ur = kw["ur"].cpu() if "ur" in kw else None
+    bf = kw.get("bf", 0.0)
+    chi2 = stages.pose_chi2(Te.cpu().double()[None], X.double()[None], uv.double()[None],
+                            w.double()[None], K.double(), None if ur is None else ur.double()[None],
+                            bf)[0][0]
+    th = torch.where(ur >= 0, pose_opt.CHI2_STEREO, pose_opt.CHI2_MONO) if ur is not None else \
+        torch.full_like(chi2, pose_opt.CHI2_MONO)
+    differ = inl.cpu() != inl_e.cpu()
+    assert bool(((chi2 - th).abs() <= 1e-4 * th)[differ].all()), int(differ.sum())
+    rounds = {k: v for k, v in kw.items() if k in ("n_rounds", "n_iters")}
+    T_ref, inl_ref = stages.pose_lm(args[0].cpu()[None], X[None], uv[None], w[None], valid[None], K,
+                                    torch.tensor([1e-3]), ur=None if ur is None else ur[None], bf=bf,
+                                    **rounds)
+    e = stages.pose_cost_excess(T.cpu()[None], T_ref, inl_ref, X[None], uv[None], w[None], K,
+                                None if ur is None else ur[None], bf)
+    assert float(e[0]) < 1e-4, float(e[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mono_1024", "stereo"])
+def test_card_kernel_repeats_bit_for_bit(case):
+    """Two launches on the same inputs give the same bits: the kernel sums in
+    a fixed order, with no atomics."""
+    args, kw = _to(_card(), *card_problem(case))
+    a, b = pose_opt.optimize_pose(*args, **kw), pose_opt.optimize_pose(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_card_raises_without_the_build(monkeypatch, tmp_path):
+    """With no library built and no nvcc, optimize_pose on the card raises:
+    it never falls back to the plain form."""
+    from weiner_slamit_v2_torch.ops import cuda_build, pose_lm_kernel
+
+    args, kw = _to(_card(), *card_problem("mono_1024"))
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_nvcc", no_nvcc)
+    n0 = pose_lm_kernel.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        pose_opt.optimize_pose(*args, **kw)
+    assert pose_lm_kernel.launches == n0
+
+
+def test_kernel_signature_matches_the_source():
+    """The ctypes argtypes of pose_lm_launch have one entry per parameter of
+    its extern "C" declaration in csrc/pose_lm.cu."""
+    import os
+    import re
+
+    from weiner_slamit_v2_torch.ops import cuda_build
+
+    src = open(os.path.join(cuda_build.CSRC, "pose_lm.cu")).read()
+    params = re.search(r'extern "C" int pose_lm_launch\(([^)]*)\)', src).group(1)
+    assert len(cuda_build.SIGNATURES["pose_lm_launch"]) == len(params.split(","))
+
+
+def _wrong(what: str):
+    args, _ = card_problem("short")
+    args = [a[:60] if a.dim() and a.shape[0] == 1024 else a for a in args]
+    if what == "dtype":
+        args[1] = args[1].double()
+    elif what == "shape":
+        args[2] = torch.zeros(60, 3)
+    elif what == "contiguity":
+        args[1] = args[1].t().contiguous().t()
+    return args
+
+
+@pytest.mark.parametrize("what,match", [("dtype", "X must be"), ("shape", "uv must be"),
+                                        ("contiguity", "not contiguous"), ("device", "CUDA device")])
+def test_wrapper_rejects_what_the_kernel_does_not_take(what, match):
+    """pose_lm checks dtype, shape and contiguity before it looks at the
+    device, and takes CUDA tensors only; nothing is launched."""
+    from weiner_slamit_v2_torch.ops import pose_lm_kernel
+
+    n0 = pose_lm_kernel.launches
+    with pytest.raises(ValueError, match=match):
+        pose_lm_kernel.pose_lm(*_wrong(what), n_rounds=4, n_iters=10, chi2_th=pose_opt.CHI2_MONO,
+                               lambda_init=1e-3)
+    assert pose_lm_kernel.launches == n0
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo"])
+def test_cpu_takes_the_plain_form(case):
+    """On the CPU optimize_pose is the plain form, bit for bit, and launches
+    nothing."""
+    from weiner_slamit_v2_torch.ops import pose_lm_kernel
+
+    args, kw = card_problem("stereo" if case == "stereo" else "mono_1024")
+    args = [a[:80] if a.dim() and a.shape[0] == 1024 else a for a in args]
+    kw = {k: v[:80] if torch.is_tensor(v) else v for k, v in kw.items()}
+    n0 = pose_lm_kernel.launches
+    got, want = pose_opt.optimize_pose(*args, **kw), pose_opt.optimize_pose_plain(*args, **kw)
+    assert pose_lm_kernel.launches == n0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

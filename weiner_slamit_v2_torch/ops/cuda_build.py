@@ -36,6 +36,9 @@ SIGNATURES = {
     # (d1, v1, pxy, win, lo, hi, d2, v2, xy2, oct2, w2, th, chi2_on,
     #  best_idx, best_dist, second_dist, B, N1, N2, stream)
     "windowed_best2_launch": [_P] * 11 + [_F, _I] + [_P] * 3 + [_I] * 3 + [_P],
+    # (T0, X, uv, inv_sigma2, valid, K, ur, N, n_rounds, n_iters, chi2_th,
+    #  lambda_init, bf, Tcw, inliers, n_inliers, stream); ur may be NULL
+    "pose_lm_launch": [_P] * 7 + [_I] * 3 + [_F] * 3 + [_P] * 4,
 }
 
 _lib = None

@@ -4,7 +4,9 @@ src/Optimizer.cc:239-451): 4 rounds x 10 LM iterations, Huber in rounds 0-1,
 chi2 reclassification between rounds. Features with a stereo right-u
 (ur >= 0) add the third row u - bf/z - ur (EdgeStereoSE3ProjectXYZOnlyPose,
 Optimizer.cc:274-310) with the 3-dof gate 7.815 as chi2 threshold and Huber
-delta^2; without ``ur`` the computation is the monocular one, unchanged."""
+delta^2; without ``ur`` the computation is the monocular one, unchanged.
+On the card the whole call is one launch of csrc/pose_lm.cu;
+``optimize_pose_plain`` is its plain twin and the CPU's form."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
-from ..ops import xla_math
+from ..ops import pose_lm_kernel, xla_math
 from ..util import fma
 from ..utils.profiling import span
 
@@ -97,119 +99,84 @@ def _lm_tail(H, b, lam, Tcw):
     return dx, se3.retract(Tcw, dx)
 
 
-# On the card the tail replays as one CUDA graph per device: its exact forms
-# are ~300 launches on 0-d and 6x6 tensors, which the host would enqueue one
-# by one; the graph runs the same kernels on the same inputs, so the bits are
-# the eager tail's. A Tracker captures it when it is built (capture_tail),
-# outside any step: a capture synchronizes the device. A graph being captured
-# cannot replay this one, so optimize_pose on the card cannot itself be
-# captured into a CUDA graph.
-_TAIL_GRAPHS: dict = {}
-
-
-def capture_tail(dev) -> None:
-    """Capture _lm_tail's CUDA graph on the card ``dev`` once (later calls
-    return at once). The capture synchronizes the device, so call it outside
-    any step or batch: Tracker.__init__ does."""
-    dev = torch.device(dev)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if dev in _TAIL_GRAPHS:
-        return
-    with torch.cuda.device(dev):
-        ins = (torch.eye(6, device=dev), torch.zeros(6, device=dev),
-               torch.full((), 1e-3, device=dev), torch.eye(4, device=dev))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):          # warm up: device constants, allocator
-            _lm_tail(*ins)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = _lm_tail(*ins)
-    _TAIL_GRAPHS[dev] = (graph, ins, outs)
-
-
-def _damped_step(H, b, lam, Tcw):
-    """_lm_tail; on the card a replay of the device's graph (capture_tail),
-    whose outputs are its buffers: read them before the next call."""
-    if not H.is_cuda:
-        return _lm_tail(H, b, lam, Tcw)
-    if H.device not in _TAIL_GRAPHS:
-        raise RuntimeError(f"the pose LM's graph on {H.device} is not captured: call "
-                           f"pose_opt.capture_tail(device) outside any step (a Tracker does)")
-    graph, ins, outs = _TAIL_GRAPHS[H.device]
-    for dst, src in zip(ins, (H, b, lam, Tcw)):
-        dst.copy_(src)
-    graph.replay()
-    return outs
-
-
 def optimize_pose(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
                   n_iters: int = 10, chi2_th: float = CHI2_MONO,
                   lambda_init: float = 1e-3, ur=None, bf=0.0):
     """Optimize one pose against fixed points X (N,3) observed at uv (N,2).
     ur: (N,) the frame's stereo right-u per feature, -1 for a monocular one
     (mvuRight); bf: baseline x fx. Returns (Tcw (4,4), inliers (N,) bool,
-    n_inliers ())."""
+    n_inliers ()). CUDA tensors launch csrc/pose_lm.cu once for the whole
+    call (ops/pose_lm_kernel.py), or raise; others take optimize_pose_plain."""
     with span("slam.pose_opt.optimize_pose"):
-        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-        stereo = ur is not None
+        if Tcw0.is_cuda:
+            return pose_lm_kernel.pose_lm(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds, n_iters,
+                                          chi2_th, lambda_init, ur, bf)
+        return optimize_pose_plain(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds, n_iters,
+                                   chi2_th, lambda_init, ur, bf)
+
+
+def optimize_pose_plain(Tcw0, X, uv, inv_sigma2, valid, K, n_rounds: int = 4,
+                        n_iters: int = 10, chi2_th: float = CHI2_MONO,
+                        lambda_init: float = 1e-3, ur=None, bf=0.0):
+    """Plain twin of the kernel: optimize_pose in PyTorch operations, on any
+    device; on the CPU bit-equal to the JAX package's program."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    stereo = ur is not None
+    if stereo:
+        is_st = ur >= 0
+        delta2 = torch.where(is_st, CHI2_STEREO, CHI2_MONO)   # Huber delta^2 per feature
+        chi2_th = torch.where(is_st, CHI2_STEREO, chi2_th)
+    else:
+        delta2 = CHI2_MONO
+
+    def resid(Tcw):
+        out = _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur, bf)
+        if not stereo:
+            return (*out, None, None)
+        ru, rv, Ju, Jv, z, rur, Jur = out
+        return ru, rv, Ju, Jv, z, torch.where(is_st, rur, 0.0), Jur
+
+    def chi2_of(Tcw):
+        ru, rv, _, _, z, rur, _ = resid(Tcw)
+        c = ru * ru + rv * rv
         if stereo:
-            is_st = ur >= 0
-            delta2 = torch.where(is_st, CHI2_STEREO, CHI2_MONO)   # Huber delta^2 per feature
-            chi2_th = torch.where(is_st, CHI2_STEREO, chi2_th)
-        else:
-            delta2 = CHI2_MONO
+            c = c + rur * rur
+        return c * inv_sigma2, z
 
-        def resid(Tcw):
-            out = _residuals_jacobian(Tcw, X, uv, fx, fy, cx, cy, ur, bf)
-            if not stereo:
-                return (*out, None, None)
-            ru, rv, Ju, Jv, z, rur, Jur = out
-            return ru, rv, Ju, Jv, z, torch.where(is_st, rur, 0.0), Jur
+    def robust_cost(chi2, z, mask, robust):
+        rho = chi2
+        if robust:
+            rho = torch.where(chi2 <= delta2, chi2,
+                              2.0 * xla_math.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
+        return torch.where(mask & (z > 0), rho, 0.0).sum()
 
-        def chi2_of(Tcw):
-            ru, rv, _, _, z, rur, _ = resid(Tcw)
-            c = ru * ru + rv * rv
+    Tcw, inliers = Tcw0, valid
+    for rnd in range(n_rounds):
+        robust = rnd < 2   # robust kernel off from round 2 (Optimizer.cc:432)
+        lam = torch.full((), lambda_init, dtype=torch.float32, device=Tcw0.device)
+        for _ in range(n_iters):
+            ru, rv, Ju, Jv, z, rur, Jur = resid(Tcw)
+            chi2 = (ru * ru + rv * rv) * inv_sigma2
             if stereo:
-                c = c + rur * rur
-            return c * inv_sigma2, z
-
-        def robust_cost(chi2, z, mask, robust):
-            rho = chi2
-            if robust:
-                rho = torch.where(chi2 <= delta2, chi2,
-                                  2.0 * xla_math.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-            return torch.where(mask & (z > 0), rho, 0.0).sum()
-
-        Tcw, inliers = Tcw0, valid
-        for rnd in range(n_rounds):
-            robust = rnd < 2   # robust kernel off from round 2 (Optimizer.cc:432)
-            lam = torch.full((), lambda_init, dtype=torch.float32, device=Tcw0.device)
-            for _ in range(n_iters):
-                ru, rv, Ju, Jv, z, rur, Jur = resid(Tcw)
-                chi2 = (ru * ru + rv * rv) * inv_sigma2
-                if stereo:
-                    chi2 = chi2 + rur * rur * inv_sigma2
-                # the roots correctly rounded, as XLA's (torch's CPU float32 root is not)
-                wr = torch.where(chi2 <= delta2, 1.0, xla_math.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
-                w = inv_sigma2 * (wr if robust else 1.0)
-                w = torch.where(inliers & (z > 0), w, 0.0)
-                Juw, Jvw = Ju * w, Jv * w
-                H = Juw @ Ju.T + Jvw @ Jv.T
-                b = -(Juw @ ru + Jvw @ rv)
-                if stereo:
-                    Jurw = Jur * (w * is_st)
-                    H = H + Jurw @ Jur.T
-                    b = b - Jurw @ rur
-                cost0 = robust_cost(chi2, z, inliers, robust)
-                dx, T_new = _damped_step(H, b, lam, Tcw)
-                c_new, z_new = chi2_of(T_new)
-                cost1 = robust_cost(c_new, z_new, inliers, robust)
-                accept = (cost1 < cost0) & torch.isfinite(cost1) & torch.isfinite(dx).all()
-                Tcw = torch.where(accept, T_new, Tcw)
-                lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-6, 1e3)
-            chi2, z = chi2_of(Tcw)
-            inliers = valid & (chi2 <= chi2_th) & (z > 0)
-        return se3.orthonormalize(Tcw), inliers, inliers.sum()
+                chi2 = chi2 + rur * rur * inv_sigma2
+            # the roots correctly rounded, as XLA's (torch's CPU float32 root is not)
+            wr = torch.where(chi2 <= delta2, 1.0, xla_math.sqrt(delta2 / torch.clamp(chi2, min=1e-12)))
+            w = inv_sigma2 * (wr if robust else 1.0)
+            w = torch.where(inliers & (z > 0), w, 0.0)
+            Juw, Jvw = Ju * w, Jv * w
+            H = Juw @ Ju.T + Jvw @ Jv.T
+            b = -(Juw @ ru + Jvw @ rv)
+            if stereo:
+                Jurw = Jur * (w * is_st)
+                H = H + Jurw @ Jur.T
+                b = b - Jurw @ rur
+            cost0 = robust_cost(chi2, z, inliers, robust)
+            dx, T_new = _lm_tail(H, b, lam, Tcw)
+            c_new, z_new = chi2_of(T_new)
+            cost1 = robust_cost(c_new, z_new, inliers, robust)
+            accept = (cost1 < cost0) & torch.isfinite(cost1) & torch.isfinite(dx).all()
+            Tcw = torch.where(accept, T_new, Tcw)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-6, 1e3)
+        chi2, z = chi2_of(Tcw)
+        inliers = valid & (chi2 <= chi2_th) & (z > 0)
+    return se3.orthonormalize(Tcw), inliers, inliers.sum()

@@ -54,7 +54,7 @@ from ..geometry.camera import Camera, bounds_from_config
 from ..models import posenet
 from ..optim import pnp
 from ..optim.local_ba import BAProblem, solve_ba
-from ..optim.pose_opt import capture_tail, optimize_pose
+from ..optim.pose_opt import optimize_pose
 from ..ops.stereo import depth_from_depthmap, match_stereo
 from ..slam_map import types as mt
 from ..slam_map.covisibility import covisibility_matrix
@@ -184,9 +184,11 @@ def _pose_opt_on_obs(m: SlamMap, feats: FrameFeatures, cur_obs, Tcw0, K, inv_sig
     mp = cur_obs.clamp(min=0)
     has = (cur_obs >= 0) & m.mp_valid[mp] & feats.valid
     w = inv_sigma2[feats.octave.clamp(0, inv_sigma2.shape[0] - 1)]
-    Tcw, inl, n_inl = optimize_pose(Tcw0, m.mp_pos[mp], feats.xy_und, w, has, K,
-                                    n_rounds=n_rounds, n_iters=n_iters, lambda_init=lm_lambda,
-                                    ur=ur, bf=bf)
+    # the card's kernel takes contiguous tensors: a copy only of one that is not
+    Tcw0, X, uv, K = (t.contiguous() for t in (Tcw0, m.mp_pos[mp], feats.xy_und, K))
+    Tcw, inl, n_inl = optimize_pose(Tcw0, X, uv, w, has, K, n_rounds=n_rounds, n_iters=n_iters,
+                                    lambda_init=lm_lambda, ur=None if ur is None else ur.contiguous(),
+                                    bf=bf)
     return Tcw, torch.where(inl | ~has, cur_obs, -1), n_inl
 
 
@@ -645,8 +647,6 @@ class Tracker:
         self.inv_sigma2 = torch.from_numpy(self.extractor.inv_sigma2).to(dev)
         self.bounds = torch.from_numpy(bounds_from_config(cfg.camera)).to(dev)
         self.eye4 = torch.eye(4, device=dev)
-        if dev.type == "cuda":
-            capture_tail(dev)   # the pose LM's graph, before any step
         # Camera.bf and the depth gate as float32 values, as the JAX package
         # passes them; the stereo matcher's least depth is the baseline
         # (Frame.cc:610)
