@@ -7,7 +7,20 @@ reference (``reference/stages.py``) and judged:
 * ``frontend_diff``: entries (keypoints, undistorted keypoints, responses,
   angles, octaves, descriptors, flags) in which the program's features of a
   window frame differ from the reference's extraction of the frame the
-  benchmark rendered; summed over every frame of the window. Exact.
+  benchmark rendered, and, in a stereo cell, the right view's features (as
+  ``match_stereo`` was handed them) from the reference's extraction of the
+  rendered right image; summed over every frame of the window. Exact.
+* ``stereo_match_diff`` (stereo cells): left keypoints whose stereo match
+  (``match_stereo``'s depth and u_right) differs from the reference's
+  (``stages.stereo_match`` on the reference's features of the rendered
+  pair): kept on one side only, or kept on both with u_right half a pixel
+  or more apart; summed. Exact: the images are integers, so every Hamming
+  and block sum is.
+* ``stereo_ur_err`` (stereo cells): the largest |u_right - the reference's|
+  px over the keypoints both keep.
+* ``rgbd_depth_diff`` (RGB-D cells): entries of ``depth_from_depthmap``'s
+  per-keypoint depth that differ from the reference's lookup in the
+  rendered depth image; summed. Exact.
 * ``pose_cost_excess``: per pose LM call (tracking and relocalization), how
   much more the last round's objective reads at the program's pose than at
   the reference's optimum on the same matches; the largest over the calls.
@@ -28,7 +41,9 @@ reference (``reference/stages.py``) and judged:
 The pose LM, the BA, the fuse and the PnP take their matches, problems and
 candidate points from the program's state at the call (the reference
 follows the session stage by stage); the extraction that starts every
-frame is judged against the rendered image alone.
+frame, the stereo match and the depth lookup are judged against the
+rendered frames alone. A number is computed and reported only where the
+cell's limits name it.
 
 With ``control`` the reference computed in bfloat16 stands in the program's
 place, on the same recorded inputs.
@@ -50,10 +65,11 @@ def _ba_dict(prob) -> dict:
     return {f.name: getattr(prob, f.name) for f in dataclasses.fields(prob)}
 
 
-def judge(rec, images, front: stages.FrontEnd, limits: dict, seed: int, control: bool = False,
+def judge(rec, tr, front: stages.FrontEnd, limits: dict, seed: int, control: bool = False,
           device=None) -> tuple[dict, set]:
     """(numbers {name: (value, limit, calls)}, frames that a number over its
-    limit rejects, seconds each stage's check took)."""
+    limit rejects, seconds each stage's check took). ``tr``: the rendered
+    traffic (``world.Traffic``)."""
     dev = torch.device(device) if device is not None else None
     bf = torch.bfloat16
     bad: set = set()
@@ -67,20 +83,69 @@ def judge(rec, images, front: stages.FrontEnd, limits: dict, seed: int, control:
         t0 = t1
 
     def note(name, frame, value):
-        if value > limits[name]:
+        if name in limits and value > limits[name]:
             bad.add(frame)
 
-    # the front end, every frame of the window
+    def image(arr, frame, like):
+        return torch.from_numpy(arr[frame]).to(dev or like.device)
+
+    # the front end, every frame of the window, and the right view of a pair
     total = 0
+    refs = {}
     for frame, feats in rec.extracts:
-        img = torch.from_numpy(images[frame]).to(dev or feats.xy.device)
-        ref = front(img)
+        img = image(tr.images, frame, feats.xy)
+        refs[frame] = ref = front(img)
         got = front(img, dtype=bf) if control else feats
         d = stages.feature_diff(got, ref)
         note("frontend_diff", frame, d)
         total += d
+    refs_r = {}
+    for frame, args, _ in rec.stereos:
+        img = image(tr.right_images, frame, args[1].xy)
+        refs_r[frame] = ref = front(img, undistort=False)
+        got = front(img, dtype=bf, undistort=False) if control else args[1]
+        d = stages.feature_diff(got, ref)
+        note("frontend_diff", frame, d)
+        total += d
     lap("frontend_diff")
-    out["frontend_diff"] = (total, len(rec.extracts))
+    out["frontend_diff"] = (total, len(rec.extracts) + len(rec.stereos))
+
+    # the stereo match of each pair
+    if "stereo_match_diff" in limits:
+        total, worst = 0, 0.0
+        for frame, args, (depth, ur) in rec.stereos:
+            left = refs.get(frame)
+            if left is None:
+                left = front(image(tr.images, frame, depth))
+            imgs = (image(tr.images, frame, depth).float(), image(tr.right_images, frame, depth).float())
+            opts = (front.bf, front.min_z, front.scales, front.orb_cfg.n_levels)
+            ref = stages.stereo_match(left, refs_r[frame], *imgs, *opts)
+            if control:
+                depth, ur = stages.stereo_match(left, refs_r[frame], *imgs, *opts, dtype=bf)[:2]
+            d, e = stages.stereo_compare(depth, ur, ref[0], ref[1])
+            note("stereo_match_diff", frame, d)
+            note("stereo_ur_err", frame, e)
+            total, worst = total + d, max(worst, e)
+        lap("stereo_match_diff")
+        out["stereo_match_diff"] = (total, len(rec.stereos))
+        out["stereo_ur_err"] = (worst, len(rec.stereos))
+
+    # the RGB-D depth lookup
+    if "rgbd_depth_diff" in limits:
+        total = 0
+        for frame, args, got in rec.depths:
+            left = refs.get(frame)
+            if left is None:
+                left = front(image(tr.images, frame, got))
+            dmap = image(tr.depths, frame, got)
+            ref = stages.depth_lookup(left, dmap)
+            if control:
+                got = stages.depth_lookup(left, dmap, dtype=bf)
+            d = int((got.to(ref.device) != ref).sum())
+            note("rgbd_depth_diff", frame, d)
+            total += d
+        lap("rgbd_depth_diff")
+        out["rgbd_depth_diff"] = (total, len(rec.depths))
 
     # the pose LMs, batched by kind (with or without stereo rows)
     worst, n = 0.0, 0
@@ -151,4 +216,4 @@ def judge(rec, images, front: stages.FrontEnd, limits: dict, seed: int, control:
         worst = max(worst, e)
     lap("pnp_deficit")
     out["pnp_deficit"] = (worst, len(rec.pnps))
-    return {k: (v, limits[k], c) for k, (v, c) in out.items()}, bad, secs
+    return {k: (v, limits[k], c) for k, (v, c) in out.items() if k in limits}, bad, secs

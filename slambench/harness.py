@@ -8,9 +8,11 @@ and the warm-up: frames tracked from frame 0 until the map holds the
 traffic's number of keyframes (and at least its number of frames). Then
 ``gc.collect()`` and ``gc.freeze()``, and the card synchronized.
 
-The window: one camera in a closed loop, the next frame handed to
-``System.track_monocular`` when the last call returned and
-the card was synchronized, for ``--seconds`` of wall time. ``frame_ms`` is
+The window: one camera in a closed loop, the next frame (a monocular
+image, a rectified stereo pair or an image with its depth, as the
+configuration's ``sensor`` says) handed to ``System.track_monocular``,
+``track_stereo`` or ``track_rgbd`` when the last call returned and the card
+was synchronized, for ``--seconds`` of wall time. ``frame_ms`` is
 the window's wall time over the frames completed in it, every frame
 counted. The 92nd percentile of the frames' latencies is printed beside it
 on an earlier line (PERF.md: it is not a metric, its runs spread too far).
@@ -18,8 +20,13 @@ on an earlier line (PERF.md: it is not a metric, its runs spread too far).
 ``--trace 1`` adds the spans of ``probes.py`` over the window, then tracks
 on past it with ``torch.profiler`` tracing some frames (the traffic's
 ``trace`` entry says which; the profiler slows the host, so no span is
-timed there); its result line carries the cell's per-layer metrics, each
-read by its own reader ``metrics/<name>.py``.
+timed there) with the program's own span recorder installed
+(``spans.recording``); its result line carries the cell's per-layer
+metrics, each read by its own reader ``metrics/<name>.py`` from a
+``Context``: the benchmark's spans, the trace reduced with the program's
+spans, the window's counts, and the session (``system``) and the probes
+(``rec``) themselves, so that a reader file alone can read a program
+counter.
 
 After the window the program's state is freed and ``check.judge`` decides
 ``correct``. Earlier lines (standard error) give the run's session: the
@@ -59,8 +66,15 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+# the compared numbers a sensor's cell must have limits for (check.py)
+SENSOR_NUMBERS = {"monocular": (), "stereo": ("stereo_match_diff", "stereo_ur_err"),
+                  "rgbd": ("rgbd_depth_diff",)}
+
+
 def load_cell(name: str, root: Path = ROOT) -> dict:
-    """The cell's entries and files, found by the names in BENCHMARK.json."""
+    """The cell's entries and files, found by the names in BENCHMARK.json
+    (the traffic, limits and readers under ``root``'s copy of this
+    directory)."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     wl = next((w for w in bench["workloads"] if w["name"] == name), None)
     if wl is None:
@@ -70,8 +84,9 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     return dict(
         bench=bench, workload=wl,
         config=json.loads((root / cfg_entry["file"]).read_text()),
-        traffic=json.loads((HERE / "traffic" / f"{wl['traffic']}.json").read_text()),
-        limits=json.loads((HERE / "limits" / f"{name}.json").read_text()),
+        traffic=json.loads((root / HERE.name / "traffic" / f"{wl['traffic']}.json").read_text()),
+        limits=json.loads((root / HERE.name / "limits" / f"{name}.json").read_text()),
+        metrics_dir=root / HERE.name / "metrics",
         end_to_end=[m for m in bench["end_to_end"] if name in m.get("workloads", [name])],
         per_layer=per_layer,
     )
@@ -85,7 +100,7 @@ def slam_config(c: dict, seed: int, scale: float = 1.0, capacity: dict | None = 
 
     cam = dict(c["camera"])
     if scale != 1.0:
-        for k in ("fx", "fy", "cx", "cy"):
+        for k in ("fx", "fy", "cx", "cy", "baseline_times_fx"):
             cam[k] *= scale
         cam["width"], cam["height"] = round(cam["width"] * scale), round(cam["height"] * scale)
     orb = dict(c["orb"])
@@ -143,12 +158,18 @@ def card_line() -> str:
 
 
 class Context:
-    """What the per-layer readers read."""
+    """What the per-layer readers read: ``frames``, ``passes``, ``lost`` of
+    the timed window; ``spans`` (the benchmark's, seconds by name);
+    ``trace`` (``trace.reduce``, the program's spans' account with it);
+    ``traced_frames``, ``traced_fuses``, ``level_shapes``,
+    ``deferred_adoptions``; ``system`` (the session, still live) and ``rec``
+    (the probes' ``Recorder``)."""
 
     def __init__(self, **kw):
         self.trace = None
         self.traced_frames = 0
         self.traced_fuses = []
+        self.system = self.rec = None
         self.__dict__.update(kw)
 
     def span_mean_ms(self, name: str):
@@ -156,17 +177,23 @@ class Context:
         return 1e3 * sum(s) / len(s) if s else None
 
 
-def read_metric(name: str, ctx: Context):
+def read_metric(name: str, ctx: Context, metrics_dir: Path = HERE / "metrics"):
     spec = importlib.util.spec_from_file_location(f"slambench_metric_{name}",
-                                                  HERE / "metrics" / f"{name}.py")
+                                                  metrics_dir / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read(ctx)
 
 
 def _feeder(system, tr, sensor: str):
+    """Frame i handed to the session's entry for the sensor."""
+    if sensor == "stereo":
+        return lambda i: system.track_stereo(tr.images[i], tr.right_images[i],
+                                             float(tr.timestamps[i]))
+    if sensor == "rgbd":
+        return lambda i: system.track_rgbd(tr.images[i], tr.depths[i], float(tr.timestamps[i]))
     if sensor != "monocular":
-        raise ValueError(f"no feeder for the sensor {sensor!r}: the generator renders images only")
+        raise ValueError(f"no feeder for the sensor {sensor!r}")
     return lambda i: system.track_monocular(tr.images[i], float(tr.timestamps[i]))
 
 
@@ -199,7 +226,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
     from weiner_slamit_v2_torch.tracking.system import System
 
-    from . import check, evaluation, probes, trace as trace_mod, world
+    from . import check, evaluation, probes, spans as spans_mod, trace as trace_mod, world
     from .reference import stages
     from .reference.port.config import OrbConfig as RefOrbConfig
     from .reference.port.ops.pyramid import level_shapes
@@ -209,10 +236,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     cell = load_cell(workload, root)
     c, traffic = cell["config"], {**cell["traffic"], **(traffic_overrides or {})}
     sensor = c["sensor"]
+    missing = [k for k in SENSOR_NUMBERS.get(sensor, ()) if k not in cell["limits"]]
+    if sensor not in SENSOR_NUMBERS or missing:
+        raise SystemExit(f"{workload}: a {sensor} cell's limits must name {missing or sensor}")
     cfg_seed = seed % 2**31
     cfg = slam_config(c, cfg_seed, scale, capacity)
     cam = {k: getattr(cfg.camera, k) for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2",
-                                               "k3", "width", "height", "fps")}
+                                               "k3", "width", "height", "fps",
+                                               "baseline_times_fx")}
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -245,7 +276,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     marks.append(("warm-up", time.perf_counter()))
     parts = ", ".join(f"{k} {b - a:.2f} s" for (_, a), (k, b) in zip([("", t_start)] + marks, marks))
     log(f"{workload} seed {seed}: {card}; torch {torch.__version__}, {TORCH_THREADS} torch "
-        f"thread(s); {n} frames rendered ({tr.images.shape[1]}x{tr.images.shape[2]}, {sensor}); "
+        f"thread(s); {n} frames rendered ({tr.images.shape[1]}x{tr.images.shape[2]}, {sensor}; "
+        f"textures {tr.texture_bytes} B); "
         f"warm-up {warm_frames} frames to {n_kf} keyframes; setup_s {setup_s:.4f} ({parts})")
 
     # --- the window ------------------------------------------------------------------
@@ -276,6 +308,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     last = n - 4 * _trace_plan(traffic, i)[1] if trace else n
     probe0, steal0 = host_probe_ms(), cpu_steal()
     clocks0 = card_clocks() if on_card else "cpu"
+    deferred0 = getattr(system, "adoptions_deferred", None)
     rec.on = True
     w0 = time.perf_counter()
     while True:
@@ -287,6 +320,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         if time.perf_counter() - w0 >= seconds:
             break
     window_s = time.perf_counter() - w0
+    deferred = None if deferred0 is None else system.adoptions_deferred - deferred0
     steal1, probe1 = cpu_steal(), host_probe_ms()
     quarters = [round(1e3 * float(np.mean(q)), 2) for q in np.array_split(np.asarray(lat), 4)
                 if len(q)]
@@ -306,6 +340,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             i += 1
         acts = [torch.profiler.ProfilerActivity.CPU]
         prof = torch.profiler.profile(activities=acts + [torch.profiler.ProfilerActivity.CUDA] * on_card)
+        recording = spans_mod.recording()
+        program_rec = recording.__enter__()
         prof.start()
         span = torch.profiler.record_function(trace_mod.WINDOW_SPAN)
         span.__enter__()
@@ -323,6 +359,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         span.__exit__(None, None, None)
         sync()
         prof.stop()
+        recording.__exit__(None, None, None)
         traced[1] = i - 1
     rec.on = False
 
@@ -367,8 +404,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
                                                                "init_features_mult")})
     per_layer, breakdown, trace_red = {}, None, None
     if trace:
+        t_red = time.perf_counter()
         trace_red = trace_mod.reduce(prof)
         del prof
+        log(spans_mod.line(trace_red, program_rec.summary() if program_rec is not None else None)
+            + f" (trace reduced in {time.perf_counter() - t_red:.2f} s)")
         end = first + frames     # the timed window's frames are first .. end - 1
         ctx = Context(
             frames=frames, passes=sum(1 for f in passes_at if f < end),
@@ -376,13 +416,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             spans=rec.span_s, trace=trace_red, traced_frames=traced[1] - traced[0] + 1,
             traced_fuses=[(a, th) for f, a, th, _ in rec.fuses if traced[0] <= f <= traced[1]],
             level_shapes=level_shapes(tr.images.shape[1], tr.images.shape[2], orb_ref.n_levels,
-                                      orb_ref.scale_factor))
+                                      orb_ref.scale_factor),
+            deferred_adoptions=deferred, system=system, rec=rec)
         for m in cell["per_layer"]:
-            v = read_metric(m["name"], ctx)
+            v = read_metric(m["name"], ctx, cell["metrics_dir"])
             if v is not None:
                 per_layer[m["name"]] = {"value": float(v), "unit": m["unit"]}
         breakdown = {"device_ops": [[k, v] for k, v in trace_red["device_ops"]],
                      "idle_gaps": [[k, v] for k, v in trace_red["idle_gaps"]]}
+        del ctx
         log(f"traced frames {traced[0]}-{traced[1]}: window {trace_red['window_s']:.4f} s, device "
             f"busy {trace_red['busy_s']:.4f} s, launches {trace_red['launches']}, synchronizing "
             f"calls {trace_red['syncs']}")
@@ -398,7 +440,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     front = stages.FrontEnd(orb_ref, {**cam, "width": tr.images.shape[2],
                                       "height": tr.images.shape[1]})
     t_check = time.perf_counter()
-    numbers, rejected, check_secs = check.judge(rec, tr.images, front, cell["limits"], cfg_seed,
+    numbers, rejected, check_secs = check.judge(rec, tr, front, cell["limits"], cfg_seed,
                                                 control=control, device=dev)
     check_s = time.perf_counter() - t_check
     failed_frames = rejected | {fi for fi, _ in errors} | set(bad_pose)

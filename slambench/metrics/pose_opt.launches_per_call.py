@@ -1,7 +1,7 @@
 """Launches per motion-only pose LM (``optimize_pose``: 4 x 10 iterations,
-the tail a CUDA graph): those inside the program's
-``slam.pose_opt.optimize_pose`` ranges of the traced frames over their
-number (``spans.py``)."""
+on the card one launch of the pose LM's kernel a call): those inside the
+program's ``slam.pose_opt.optimize_pose`` ranges of the traced frames over
+their number (``spans.py``)."""
 
 
 def read(ctx):

@@ -12,9 +12,13 @@ timed and nothing synchronized, so the traced frames run the program's own
 synchronization alone.
 
 The wrapped names are looked up where the program calls them: module
-attributes (``tracker.optimize_pose``, ``local_mapping.solve_ba`` /
-``windowed_best2``, ``system.mapping_step``, ``pnp.ransac_pnp``) and the
-session's own bound methods and hooks.
+attributes (``tracker.optimize_pose``, ``tracker.match_stereo`` /
+``depth_from_depthmap``, ``local_mapping.solve_ba`` / ``windowed_best2``,
+``system.mapping_step``, ``pnp.ransac_pnp``) and the session's own bound
+methods and hooks. ``Tracker._features`` (the extraction, and in a depth
+mode the depth lookup or the right view's extraction and the stereo match)
+is a span of its own, so that the right view's extraction has a time: the
+features span less the extract and match spans.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ import torch
 SPAN_TRACK = "system.track"
 SPAN_PRE = "system.pre_frame"
 SPAN_EXTRACT = "frontend.extract"
+SPAN_FEATURES = "frontend.features"
+SPAN_STEREO = "frontend.match_stereo"
+SPAN_DEPTH = "frontend.depth_lookup"
 SPAN_STEP = "tracker.track"
 SPAN_RELOC = "tracker.relocalize"
 SPAN_LM = "pose_opt.optimize_pose"
@@ -52,6 +59,8 @@ class Recorder:
         self.in_reloc = False
         self.span_s: dict = defaultdict(list)
         self.extracts: list = []     # (frame, FrameFeatures)
+        self.stereos: list = []      # (frame, match_stereo's args, (depth, u_right))
+        self.depths: list = []       # (frame, depth_from_depthmap's args, depth)
         self.lms: list = []          # (frame, reloc?, args, kwargs, outputs)
         self.bas: list = []          # (frame, BAProblem, BAResult)
         self.fuses: list = []        # (frame, args, chi2_th, outputs)
@@ -59,11 +68,14 @@ class Recorder:
         self.pnp_draw_calls: list = []   # (frame, kf, n_valid) in call order
         self._restore = []
         self._patch(tracker, "optimize_pose", self._lm, SPAN_LM)
+        self._patch(tracker, "match_stereo", self._stereo, SPAN_STEREO)
+        self._patch(tracker, "depth_from_depthmap", self._depth, SPAN_DEPTH)
         self._patch(local_mapping, "solve_ba", self._ba, SPAN_BA)
         self._patch(local_mapping, "windowed_best2", self._fuse, SPAN_FUSE)
         self._patch(pnp, "ransac_pnp", self._pnp, SPAN_PNP)
         self._patch(system_mod, "mapping_step", None, SPAN_PASS)
         self._patch(self.t, "_extract", self._extract, SPAN_EXTRACT)
+        self._patch(self.t, "_features", None, SPAN_FEATURES)
         self._patch(self.t, "_track", None, SPAN_STEP)
         self._patch(self.t, "_relocalize", None, SPAN_RELOC, tags_reloc=True)
         self._patch(system, "_pre_frame", None, SPAN_PRE)
@@ -121,6 +133,12 @@ class Recorder:
 
     def _extract(self, args, kwargs, out):
         self.extracts.append((self.t.frame_id, out))
+
+    def _stereo(self, args, kwargs, out):
+        self.stereos.append((self.t.frame_id, args, out))
+
+    def _depth(self, args, kwargs, out):
+        self.depths.append((self.t.frame_id, args, out))
 
     def _lm(self, args, kwargs, out):
         self.lms.append((self.t.frame_id, self.in_reloc, args, kwargs, out))

@@ -12,6 +12,12 @@
 * ``ransac_pnp``: the relocalization's RANSAC over 6-point DLT hypotheses
   with the program's draws regenerated from its seed rule, in float64.
 * ``windowed_best2``: kernel B's plain form (frozen copy).
+* ``stereo_match``: Frame::ComputeStereoMatches keypoint by keypoint, with
+  the port's gates: the best descriptor among the right keypoints in the
+  row band, disparity range and octave window, then the 11x11 SAD slid
+  over +-5 px and the parabola through the best three.
+* ``depth_lookup``: Frame::ComputeStereoFromRGBD, the depth image's
+  nearest pixel at each keypoint.
 
 ``dtype=torch.bfloat16`` is the control: every residual, Jacobian, product
 and projection in bfloat16; only the 6x6 / dense / SVD solves run in
@@ -21,11 +27,12 @@ program.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .port.frontend.extractor import OrbExtractor
 from .port.geometry.camera import Camera
-from .port.ops import pyramid
+from .port.ops import hamming, pyramid
 from .port.ops.match_plain import windowed_best2_plain
 
 CHI2_MONO = 5.991
@@ -48,14 +55,22 @@ class FrontEnd:
         self.camera = Camera.create(*(camera[k] for k in ("fx", "fy", "cx", "cy", "k1", "k2",
                                                          "p1", "p2", "k3", "width", "height")))
         self.orb_cfg = orb_cfg
+        # the stereo gates as the configuration states them, in float32
+        # (Camera.bf; the smallest depth is the baseline, Frame.cc:610)
+        bf = float(np.float32(camera.get("baseline_times_fx", 0.0)))
+        self.bf = bf
+        self.min_z = float(np.float32(bf / camera["fx"] if bf > 0 else 0.0))
+        self.scales = torch.from_numpy(self.extractor.scales)
 
-    def __call__(self, image: torch.Tensor, dtype=torch.float32):
+    def __call__(self, image: torch.Tensor, dtype=torch.float32, undistort: bool = True):
+        """The features of an (H, W) image; ``undistort=False`` leaves
+        ``xy_und`` at ``xy``, as a stereo pair's right view is extracted."""
         levels = pyramid.build_pyramid(image.to(torch.float32), self.orb_cfg.n_levels,
                                        self.orb_cfg.scale_factor)
         if dtype == torch.bfloat16:
             levels = [lv.to(torch.bfloat16).to(torch.float32) for lv in levels]
         feats = self.extractor.extract_levels(levels)
-        return feats.replace(xy_und=self.camera.undistort_points(feats.xy))
+        return feats.replace(xy_und=self.camera.undistort_points(feats.xy)) if undistort else feats
 
 
 FEATURE_FIELDS = ("xy", "xy_und", "response", "angle", "octave", "desc", "valid")
@@ -483,3 +498,101 @@ def windowed_best2(args, chi2_th: float, dtype=torch.float32):
         for i in (4, 5, 6, 10):
             args[i] = args[i].to(torch.bfloat16).to(torch.float32)
     return windowed_best2_plain(*args, chi2_th)
+
+
+# --- stereo and depth ------------------------------------------------------------------
+
+TH_HIGH = 100  # ORBmatcher::TH_HIGH, the descriptor gate of Frame.cc:637
+SAD_W = 5      # the 11x11 block's half width (Frame.cc:684)
+SAD_L = 5      # the slide, +-L px (Frame.cc:690)
+
+
+def stereo_match(left, right, left_img, right_img, bf: float, min_z: float, scales,
+                 n_levels: int, dtype=torch.float32):
+    """Frame::ComputeStereoMatches under the port's gates, each left
+    keypoint on its own (a row of the arrays below). For left keypoint i:
+    the right keypoints j whose row lies within 2 x the scale of j's octave
+    of i's, whose disparity x_i - x_j lies in [-3, bf / min_z] and whose
+    octave is within one of i's are the candidates; the one of least
+    Hamming distance (the first on a tie) is matched if that distance is
+    under TH_HIGH. Then the 11x11 block around i, less its centre, is
+    compared by the sum of absolute differences with the right image's block
+    at x_j + o for o in -5..5, less its centre (blocks clamped to the
+    image); the parabola through the best offset (held one step inside the
+    slide) and its neighbours, its step clamped to +-1 px, gives u_right,
+    kept where the disparity x_i - u_right lies in (0, bf / min_z).
+    Returns (depth, u_right, matched right index), -1 where no match is
+    kept.
+
+    ``dtype=torch.bfloat16`` is the control: positions, scales, images and
+    block sums in bfloat16."""
+    dev = left_img.device
+    q = lambda v: v.to(device=dev, dtype=dtype)  # noqa: E731
+    xl, yl = q(left.xy[:, 0]), q(left.xy[:, 1])
+    xr, yr = q(right.xy[:, 0]), q(right.xy[:, 1])
+    img_l, img_r = q(left_img), q(right_img)
+    bf_t, min_z_t = (torch.tensor(v, dtype=torch.float32, device=dev).to(dtype)
+                     for v in (bf, min_z))
+    max_d = bf_t / torch.clamp(min_z_t, min=1e-6)
+    oct_l, oct_r = left.octave.to(dev).long(), right.octave.to(dev).long()
+    H, W = img_l.shape
+    # candidates: rows i (left) x columns j (right)
+    band = 2.0 * q(scales)[oct_r.clamp(0, n_levels - 1)]
+    disp = xl[:, None] - xr[None, :]
+    cand = (left.valid.to(dev)[:, None] & right.valid.to(dev)[None, :]
+            & ((yl[:, None] - yr[None, :]).abs() <= band[None, :])
+            & (disp >= -3.0) & (disp <= max_d) & ((oct_l[:, None] - oct_r[None, :]).abs() <= 1))
+    dist = hamming.distance_matrix(left.desc.to(dev), right.desc.to(dev)).long()
+    dist = torch.where(cand, dist, 1 << 20)
+    j = torch.argmin(dist, 1)                          # the first of the least
+    matched = dist.gather(1, j[:, None])[:, 0] < TH_HIGH
+    # the SAD slide, keypoint by keypoint along the rows
+    offs = torch.arange(-SAD_W, SAD_W + 1, device=dev)
+    rows = (torch.round(yl).long()[:, None] + offs).clamp(0, H - 1)           # (N, 11)
+    cols = (torch.round(xl).long()[:, None] + offs).clamp(0, W - 1)
+    block_l = img_l[rows[:, :, None], cols[:, None, :]]                       # (N, 11, 11)
+    block_l = block_l - block_l[:, SAD_W:SAD_W + 1, SAD_W:SAD_W + 1]
+    x0 = xr[j]
+    sads = []
+    for o in range(-SAD_L, SAD_L + 1):
+        cols_r = (torch.round(x0).long()[:, None] + o + offs).clamp(0, W - 1)
+        block_r = img_r[rows[:, :, None], cols_r[:, None, :]]
+        block_r = block_r - block_r[:, SAD_W:SAD_W + 1, SAD_W:SAD_W + 1]
+        sads.append((block_l - block_r).abs().sum((1, 2)))
+    sads = torch.stack(sads, 1)                                               # (N, 11)
+    c = torch.argmin(sads, 1).clamp(1, 2 * SAD_L - 1)
+    s_m, s_0, s_p = (sads.gather(1, (c + k)[:, None])[:, 0] for k in (-1, 0, 1))
+    denom = torch.clamp(s_m + s_p - 2.0 * s_0, min=1e-6)
+    delta = (0.5 * (s_m - s_p) / denom).clamp(-1.0, 1.0)
+    u = x0 + (c.to(dtype) - SAD_L) + delta
+    disparity = xl - u
+    keep = matched & (disparity > 0.0) & (disparity < max_d)
+    depth = torch.where(keep, bf_t / torch.clamp(disparity, min=1e-3), -1.0).float()
+    return depth, torch.where(keep, u, -1.0).float(), torch.where(keep, j, -1)
+
+
+def stereo_compare(prog_depth, prog_ur, ref_depth, ref_ur) -> tuple[int, float]:
+    """(left keypoints whose match differs, the largest |u_right - the
+    reference's| px over those matched in both). A keypoint's match
+    differs where one side keeps a match and the other not, or where both
+    keep one and their u_right lie half a pixel or more apart: another
+    right keypoint or another SAD offset, which no rounding gives."""
+    got = prog_depth.to(ref_depth.device) >= 0
+    ref = ref_depth >= 0
+    both = got & ref
+    err = torch.where(both, (prog_ur.to(ref_ur.device).float() - ref_ur).abs(),
+                      torch.zeros_like(ref_ur))
+    differ = (got != ref) | (both & (err >= 0.5))
+    return int(differ.sum()), float(err.max()) if err.numel() else 0.0
+
+
+def depth_lookup(feats, depth_map: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Frame::ComputeStereoFromRGBD: each valid keypoint's depth is the
+    depth image's pixel nearest to it (rounded half to even, held inside the
+    image), -1 where the keypoint is invalid or the pixel holds no depth.
+    ``dtype=torch.bfloat16`` is the control: the depth image in bfloat16."""
+    dmap = depth_map.to(dtype).to(torch.float32)
+    H, W = dmap.shape
+    xy = feats.xy.to(dmap.device)
+    d = dmap[torch.round(xy[:, 1]).long().clamp(0, H - 1), torch.round(xy[:, 0]).long().clamp(0, W - 1)]
+    return torch.where(feats.valid.to(dmap.device) & (d > 0), d, -1.0)

@@ -59,15 +59,25 @@ def test_cell_runs_end_to_end(workload, tmp_path):
 
 
 def test_traced_run_reads_its_span_metrics():
-    # two traced frames; the spans are read in the frames after them
+    # three traced frames or more, until a mapping pass ran in them; the
+    # spans are read in the window before them
     r = _run("tum_fr1_mono.explore", seconds=8.0, trace=True,
-             traffic_overrides={"trace": {"frames": 2}})
+             traffic_overrides={"trace": {"frames": 3, "until": "pass"}})
     assert r["correct"] is True
     m = r["metrics"]
     for name in ("frontend.extract_ms", "tracker.track_ms", "pose_opt.lm_ms",
                  "system.passes_per_100", "device.launches_per_frame"):
         assert name in m and m[name]["value"] >= 0, name
+    # the readers of the program's own spans and counters (the CPU launches
+    # nothing, so the launch counts read 0)
+    for name in ("pose_opt.launches_per_call", "tracker.self_launches_per_step",
+                 "frontend.launches_per_extract", "mapping.launches_per_pass",
+                 "mapping.syncs_per_pass", "device.idle_unspanned_share",
+                 "system.deferred_adoptions_per_100"):
+        assert name in m and m[name]["value"] is not None and m[name]["value"] >= 0, name
     assert "frame_ms" not in m and "breakdown" in r
+    # the idle gaps now name the program's own spans
+    assert any(n.startswith("slam.") for n, _ in r["breakdown"]["idle_gaps"])
 
 
 def test_the_bfloat16_control_is_not_correct():

@@ -1,5 +1,5 @@
-"""The program spans' account (spans.py) on hand-built profiler events, and
-the readers of it on built Contexts."""
+"""The program spans' account (trace.py, spans.py) on hand-built profiler
+events, and the readers of it on built Contexts."""
 
 import pytest
 
@@ -69,7 +69,7 @@ def _events(program=True):
 
 
 def test_launches_syncs_and_idle_go_to_the_innermost_program_span():
-    r = spans.reduce(_Prof(_events()))
+    r = trace.reduce(_Prof(_events()))
     by = r["by_span"]
     assert list(by) == ["slam.pose_opt.optimize_pose", "slam.system.frame", "slam.tracker.step"]
     assert {n: (s["calls"], s["launches"], s["syncs"]) for n, s in by.items()} == {
@@ -85,7 +85,7 @@ def test_launches_syncs_and_idle_go_to_the_innermost_program_span():
 
 def test_the_account_adds_up_to_the_traces_totals():
     prof = _Prof(_events())
-    r, t = spans.reduce(prof), trace.reduce(prof)
+    r = t = trace.reduce(prof)
     by = r["by_span"].values()
     assert sum(s["launches"] for s in by) + r["launches_unspanned"] == t["launches"] == 8
     assert sum(s["syncs"] for s in by) + r["syncs_unspanned"] == t["syncs"] == 4
@@ -99,7 +99,7 @@ def test_the_account_adds_up_to_the_traces_totals():
 
 def test_a_trace_without_program_spans_is_all_unspanned():
     prof = _Prof(_events(program=False))
-    r, t = spans.reduce(prof), trace.reduce(prof)
+    r = t = trace.reduce(prof)
     assert r["by_span"] == {}
     assert (r["launches_unspanned"], r["syncs_unspanned"]) == (t["launches"], t["syncs"])
     assert r["idle_unspanned_s"] == pytest.approx(t["window_s"] - t["busy_s"])
@@ -108,11 +108,11 @@ def test_a_trace_without_program_spans_is_all_unspanned():
         assert t[k] == with_spans[k], k
     assert not any(n.startswith(spans.PREFIX) for n, _ in t["idle_gaps"])
     with pytest.raises(RuntimeError):
-        spans.reduce(_Prof(_events()[2:]))
+        trace.reduce(_Prof(_events()[2:]))
 
 
 def test_line_names_every_span_and_the_rest():
-    r = spans.reduce(_Prof(_events()))
+    r = trace.reduce(_Prof(_events()))
     s = spans.line(r, {"slam.tracker.step": {"calls": 1, "total_ms": 2.0, "self_ms": 1.5}})
     assert "\n" not in s and all(n in s for n in r["by_span"])
     assert "host 2.00 / 1.50 ms" in s and "in no span: 2 launches, 1 syncs" in s
@@ -167,3 +167,30 @@ def test_the_readers_give_none_where_they_find_nothing(ctx):
                   "pose_opt.launches_per_call", "device.idle_unspanned_share"]
     for n in names:
         assert harness.read_metric(n, ctx) is None, n
+
+
+class _Once(list):
+    """Events that count how often they are walked."""
+
+    walks = 0
+
+    def __iter__(self):
+        _Once.walks += 1
+        return super().__iter__()
+
+
+def test_the_reduction_walks_the_events_once():
+    events = _Once(_events())
+    calls = []
+
+    class KR:
+        def events(self):
+            calls.append(1)
+            return events
+
+    prof = type("P", (), {"profiler": type("PP", (), {"kineto_results": KR()})()})()
+    _Once.walks = 0
+    t = trace.reduce(prof)
+    assert (len(calls), _Once.walks) == (1, 1)
+    # and it holds the program spans' account beside the trace's own totals
+    assert len(t["by_span"]) == 3 and t["launches"] == 8 and t["launches_unspanned"] == 2

@@ -106,3 +106,112 @@ def test_the_tail_lies_among_the_keyframe_frames(period, first):
     for n in range(100, 220):
         lat = [0.59 if i >= first and (i - first) % period == 0 else 0.32 for i in range(n)]
         assert harness.frame_times(lat, sum(lat))[1] == pytest.approx(590.0), n
+
+
+# sha256 of the shrunk frames (seed 2**31 + 5, 6 frames at a quarter of the
+# fr1 size) as the monocular renderer drew them before planes could lie
+# normal to x or y: the one cell's frames may not move
+MONO_FRAMES_SHA256 = {
+    "explore": "18cb40276a3c73daa25135f50cb6a7005cc5fb8be1470fdb07d1090baf9d4827",
+    "kidnap": "4ef3e218dc298add8a8d1f788566fdc2bd2d0524ba8e2aad06b293debb4ae945",
+}
+
+
+@pytest.mark.parametrize("name", sorted(MONO_FRAMES_SHA256))
+def test_the_monocular_frames_are_pinned(name):
+    import hashlib
+
+    tr = world.build_traffic(_traffic(name), CAM_FR1, "monocular", 2**31 + 5, "cpu", n_frames=6,
+                             scale=0.25)
+    assert hashlib.sha256(tr.images.tobytes()).hexdigest() == MONO_FRAMES_SHA256[name]
+    assert tr.right_images is None and tr.depths is None
+
+
+def _numpy_cast(planes, Tcw, fx, fy, cx, cy, h, w):
+    """A plain ray cast, float64, pixel by pixel: (image, ray parameter at
+    the nearest hit or inf)."""
+    R, t = Tcw[:3, :3], Tcw[:3, 3]
+    C = -R.T @ t
+    img, best = np.zeros((h, w)), np.full((h, w), np.inf)
+    axes = {"x": (0, 2, 1), "y": (1, 0, 2), "z": (2, 0, 1)}
+    for v in range(h):
+        for u in range(w):
+            d = R.T @ np.array([(u - cx) / fx, (v - cy) / fy, 1.0])
+            for p in planes:
+                a, iu, iv = axes[p.axis]
+                if abs(d[a]) < 1e-9:
+                    continue
+                lam = (p.depth - C[a]) / d[a]
+                if not (0.05 < lam < best[v, u]):
+                    continue
+                X = C + lam * d
+                tex = p.texture.numpy().astype(np.float64)
+                th, tw = tex.shape
+                tu = (X[iu] - p.tex_center[0]) * p.ppm + tw / 2.0
+                tv = (X[iv] - p.tex_center[1]) * p.ppm + th / 2.0
+                best[v, u] = lam
+                if 0 <= tu < tw - 1 and 0 <= tv < th - 1:
+                    u0, v0 = int(np.floor(tu)), int(np.floor(tv))
+                    du, dv = tu - u0, tv - v0
+                    img[v, u] = (tex[v0, u0] * (1 - du) * (1 - dv) + tex[v0, u0 + 1] * du * (1 - dv)
+                                 + tex[v0 + 1, u0] * (1 - du) * dv + tex[v0 + 1, u0 + 1] * du * dv)
+                else:
+                    img[v, u] = 0.0
+    return img, best
+
+
+STREET = {"planes": [
+    {"axis": "y", "at": 1.65, "ppm": 20, "extent": [[-8.0, 8.0], [-5.0, 60.0]]},
+    {"axis": "x", "at": -8.0, "ppm": 20, "extent": [[-5.0, 60.0], [-10.0, 1.65]]},
+    {"axis": "x", "at": 8.0, "ppm": 20, "extent": [[-5.0, 60.0], [-10.0, 1.65]]},
+    {"axis": "z", "at": 60.0, "ppm": 20, "extent": [[-8.0, 8.0], [-10.0, 1.65]]}]}
+
+
+def test_planes_normal_to_x_and_y_agree_with_a_numpy_ray_cast():
+    h, w, f = 24, 64, 40.0
+    cx, cy = w / 2 - 0.5, h / 2 - 0.5
+    planes = world.make_world(STREET, f, h, w, (0.0, 0.0), 11, "cpu")
+    assert [p.axis for p in planes] == ["y", "x", "x", "z"]
+    rays = torch.from_numpy(world.pinhole_rays(f, f, cx, cy, h, w))
+    for twc, rot in [((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)), ((1.2, -0.4, 7.3), (0.03, -0.3, 0.02))]:
+        Tcw = _pose(twc, rot)
+        img, lam = world.render(planes, Tcw[None], rays, with_depth=True)
+        ref, ref_lam = _numpy_cast(planes, Tcw, f, f, cx, cy, h, w)
+        hit = np.isfinite(ref_lam)
+        assert hit.mean() > 0.5 and np.array_equal(hit, torch.isfinite(lam[0]).numpy())
+        # float32 against float64: texture coordinates tens of meters out
+        assert np.abs(lam[0].numpy()[hit] - ref_lam[hit]).max() < 1e-3 * ref_lam[hit].max()
+        assert np.mean(np.abs(img[0].numpy() - ref) < 0.5) > 0.995
+
+
+def test_stereo_and_depth_frames():
+    cam = {"fx": 40.0, "fy": 40.0, "cx": 31.5, "cy": 11.5, "width": 64, "height": 24,
+           "baseline_times_fx": 40.0 * 0.5, "fps": 10.0}
+    spec = {"frames": 3, "warmup_keyframes": 1,
+            "path": {"pos": [[0.0, 0.0, []], [0.0, 0.0, []], [0.0, 0.8, []]],
+                     "rot": [[0.0, 0.0, []], [0.0, 0.0, []], [0.0, 0.0, []]]},
+            "worlds": {"stereo": STREET, "rgbd": STREET}}
+    st = world.build_traffic(spec, cam, "stereo", 5, "cpu")
+    rd = world.build_traffic(spec, cam, "rgbd", 5, "cpu")
+    assert st.right_images.shape == st.images.shape == (3, 24, 64) and st.depths is None
+    assert rd.right_images is None and rd.depths.dtype == np.float32
+    assert np.array_equal(st.images, rd.images)
+    planes = world.make_world(STREET, 40.0, 24, 64, (0.0, 0.0), 5, "cpu")
+    for i in range(3):
+        # the right view is the left camera moved by the baseline along its own x
+        Twc_r = st.gt_Twc[i].copy()
+        Twc_r[:3, 3] += Twc_r[:3, :3] @ np.array([0.5, 0.0, 0.0])
+        ref, _ = _numpy_cast(planes, np.linalg.inv(Twc_r), 40.0, 40.0, 31.5, 11.5, 24, 64)
+        assert np.mean(np.abs(st.right_images[i].astype(float) - np.clip(ref, 0, 255)) <= 1) > 0.99
+        # the depth is the camera z of the nearest hit
+        _, lam = _numpy_cast(planes, np.linalg.inv(rd.gt_Twc[i]), 40.0, 40.0, 31.5, 11.5, 24, 64)
+        hit = np.isfinite(lam)
+        assert np.allclose(rd.depths[i][hit], lam[hit], rtol=1e-4) and (rd.depths[i][~hit] == 0).all()
+
+
+def test_a_stereo_camera_with_a_lens_is_refused():
+    spec = {"frames": 2, "warmup_keyframes": 1, "path": _traffic("explore")["path"],
+            "worlds": {"stereo": {"planes": [{"depth": 4.0}]}}}
+    with pytest.raises(ValueError, match="rectified"):
+        world.build_traffic(spec, {**CAM_FR1, "baseline_times_fx": 40.0}, "stereo", 1, "cpu",
+                            scale=0.1)

@@ -1,5 +1,6 @@
 """The benchmark's traffic generator: camera paths, kidnap schedules and
-textured worlds rendered on the device.
+textured worlds rendered on the device, as monocular frames, rectified
+stereo pairs or frames with their depth.
 
 A traffic file (``slambench/traffic/<name>.json``) holds only parameters;
 ``build_traffic`` turns it, a sensor and a seed into the frames the window
@@ -107,15 +108,28 @@ def kidnap_schedule(kid: dict | None, n: int) -> tuple[np.ndarray, np.ndarray]:
 @dataclass
 class Plane:
     texture: torch.Tensor      # (th, tw) float32 on the device
-    depth: float               # world z of the plane
-    tex_center: tuple          # world (x, y) at the texture's centre
+    depth: float               # the plane's world coordinate along its axis
+    tex_center: tuple          # world (u, v) at the texture's centre
     ppm: float                 # texture pixels per meter
+    axis: str = "z"            # the world axis the plane is normal to
+
+
+# per axis: the world axes along the texture's columns (u) and rows (v)
+TEX_AXES = {"x": (2, 1), "y": (0, 2), "z": (0, 1)}
+AXIS = {"x": 0, "y": 1, "z": 2}
 
 
 def _texture_size(spec: dict, path_x: tuple, fx: float, h: int, w: int) -> tuple:
-    """(th, tw, centre x): the texture covers the plane where any frame of
-    the path can see it, with the view's half width at that depth on each
-    side."""
+    """(th, tw, centre u, centre v, ppm). A plane with ``extent`` ([[u0, u1],
+    [v0, v1]] meters along its texture's axes) and ``ppm`` covers that
+    extent. A plane normal to z without them (``depth``) covers the plane
+    where any frame of the path can see it, with the view's half width at
+    that depth on each side."""
+    if "extent" in spec:
+        (u0, u1), (v0, v1) = spec["extent"]
+        ppm = spec["ppm"]
+        return (int((v1 - v0) * ppm) + 8, int((u1 - u0) * ppm) + 8, 0.5 * (u0 + u1),
+                0.5 * (v0 + v1), ppm)
     ppm = fx / spec["depth"]
     view_w = (w / fx) * spec["depth"] * spec.get("view_margin", 1.0)
     view_h = (h / fx) * spec["depth"] * spec.get("view_margin", 1.0)
@@ -126,14 +140,19 @@ def _texture_size(spec: dict, path_x: tuple, fx: float, h: int, w: int) -> tuple
 
 def make_world(spec: dict, fx: float, h: int, w: int, path_x: tuple, seed: int,
                device) -> list[Plane]:
-    """The planes of a world spec, their textures drawn from ``seed``."""
+    """The planes of a world spec, their textures drawn from ``seed``. A
+    plane is normal to its ``axis`` (default ``"z"``) at ``at`` (``depth``
+    for a plane normal to z)."""
     rng = np.random.default_rng(seed)
     planes = []
     for p in spec["planes"]:
-        th, tw, cx, cy, ppm = _texture_size(p, path_x, fx, h, w)
+        axis = p.get("axis", "z")
+        if axis not in AXIS:
+            raise ValueError(f"a plane's axis is x, y or z, not {axis!r}")
+        th, tw, cu, cv, ppm = _texture_size(p, path_x, fx, h, w)
         n_blocks = max(1, round(160 * (th * tw) / spec.get("block_area", 1200 * 1600)))
         tex = torch.from_numpy(perlin_texture(th, tw, rng, n_blocks=n_blocks)).to(device)
-        planes.append(Plane(tex, p["depth"], (cx, cy), ppm))
+        planes.append(Plane(tex, p["at"] if "at" in p else p["depth"], (cu, cv), ppm, axis))
     return planes
 
 
@@ -176,9 +195,12 @@ def lens_rays(cam: dict, h: int, w: int, iters: int = 40) -> np.ndarray:
     return np.stack([x, y, np.ones_like(x)], -1).astype(np.float32)
 
 
-def render(planes: list[Plane], Tcw: np.ndarray, rays: torch.Tensor) -> torch.Tensor:
+def render(planes: list[Plane], Tcw: np.ndarray, rays: torch.Tensor,
+           with_depth: bool = False):
     """Images (B, H, W) float32 in [0, 255] of the camera poses Tcw (B, 4, 4),
-    nearest hit wins."""
+    nearest hit wins; with ``with_depth`` also each pixel's ray parameter at
+    its hit (the camera z where the rays have z = 1), inf where nothing is
+    hit."""
     dev = rays.device
     T = torch.from_numpy(np.asarray(Tcw, np.float32)).to(dev)
     R, t = T[:, :3, :3], T[:, :3, 3]
@@ -187,38 +209,51 @@ def render(planes: list[Plane], Tcw: np.ndarray, rays: torch.Tensor) -> torch.Te
     B, H, W = ray_w.shape[:3]
     best = torch.full((B, H, W), math.inf, device=dev)
     img = torch.zeros((B, H, W), device=dev)
-    rz = ray_w[..., 2]
-    rz = torch.where(rz.abs() > 1e-6, rz, 1e-6)
     for p in planes:
-        lam = (p.depth - C[:, 2, None, None]) / rz
-        X = C[:, None, None, 0] + lam * ray_w[..., 0]
-        Y = C[:, None, None, 1] + lam * ray_w[..., 1]
+        a, (iu, iv) = AXIS[p.axis], TEX_AXES[p.axis]
+        ra = ray_w[..., a]
+        ra = torch.where(ra.abs() > 1e-6, ra, 1e-6)
+        lam = (p.depth - C[:, a, None, None]) / ra
+        U = C[:, None, None, iu] + lam * ray_w[..., iu]
+        V = C[:, None, None, iv] + lam * ray_w[..., iv]
         th, tw = p.texture.shape
-        tu = (X - p.tex_center[0]) * p.ppm + tw / 2.0
-        tv = (Y - p.tex_center[1]) * p.ppm + th / 2.0
+        tu = (U - p.tex_center[0]) * p.ppm + tw / 2.0
+        tv = (V - p.tex_center[1]) * p.ppm + th / 2.0
         hit = (lam > 0.05) & (lam < best)
         img = torch.where(hit, bilinear(p.texture, tu, tv), img)
         best = torch.where(hit, lam, best)
-    return img
+    return (img, best) if with_depth else img
 
 
 # --- a cell's frames ---------------------------------------------------------------
 
 @dataclass
 class Traffic:
-    images: np.ndarray           # (N, H, W) uint8, the frames as handed over
+    images: np.ndarray           # (N, H, W) uint8, the frames as handed over (the left view)
     gt_Twc: np.ndarray           # (N, 4, 4) the rendered truth
     blank: np.ndarray            # (N,) bool: covered lens
     timestamps: np.ndarray       # (N,) seconds
     warmup_keyframes: int        # the window starts once the map holds this many
     min_warmup_frames: int       # ... and at least this many frames were tracked
+    texture_bytes: int = 0       # the worlds' textures on the device
+    right_images: np.ndarray | None = None   # (N, H, W) uint8, stereo: the rectified right view
+    depths: np.ndarray | None = None         # (N, H, W) float32 meters, RGB-D; 0 where no hit
+
+
+LENS = ("k1", "k2", "k3", "p1", "p2")
 
 
 def build_traffic(spec: dict, camera: dict, sensor: str, seed: int, device,
                   n_frames: int | None = None, scale: float = 1.0) -> Traffic:
     """Render a traffic mix for a camera (CameraConfig fields) and sensor.
     ``n_frames`` / ``scale`` shorten the path and shrink the image for the
-    CPU tests (the camera's intrinsics scale with the image)."""
+    CPU tests (the camera's intrinsics scale with the image).
+
+    ``stereo`` also renders the right view of a rectified pair: the left
+    camera moved by the baseline ``baseline_times_fx / fx`` along its own x
+    axis, with the same pinhole rays (a stereo camera with a lens is
+    refused: ORB-SLAM2's stereo takes rectified pairs). ``rgbd`` also gives
+    each pixel's depth in meters, 0 where no plane is hit."""
     n = n_frames or spec["frames"]
     h, w = int(round(camera["height"] * scale)), int(round(camera["width"] * scale))
     fx, fy = camera["fx"] * scale, camera["fy"] * scale
@@ -228,21 +263,39 @@ def build_traffic(spec: dict, camera: dict, sensor: str, seed: int, device,
     world = spec["worlds"][sensor]
     xs = Twc[:, 0, 3]
     planes = make_world(world, fx, h, w, (float(xs.min()), float(xs.max())), seed, device)
-    lens = {"fx": fx, "fy": fy, "cx": cx, "cy": cy,
-            **{k: camera.get(k, 0.0) for k in ("k1", "k2", "k3", "p1", "p2")}}
-    if any(lens[k] != 0.0 for k in ("k1", "k2", "k3", "p1", "p2")):
+    lens = {"fx": fx, "fy": fy, "cx": cx, "cy": cy, **{k: camera.get(k, 0.0) for k in LENS}}
+    distorted = any(lens[k] != 0.0 for k in LENS)
+    if sensor == "stereo" and distorted:
+        raise ValueError("a stereo camera takes rectified pairs: its lens must be zero")
+    if distorted:
         rays = lens_rays(lens, h, w)
     else:
         rays = pinhole_rays(fx, fy, cx, cy, h, w)
     rays = torch.from_numpy(rays).to(device)
     Tcw = np.linalg.inv(Twc)
     images = np.empty((n, h, w), np.uint8)
+    right = np.empty((n, h, w), np.uint8) if sensor == "stereo" else None
+    depths = np.empty((n, h, w), np.float32) if sensor == "rgbd" else None
+    Tcw_r = Tcw.copy()
+    # the right camera: X_right = X_left - (baseline, 0, 0)
+    Tcw_r[:, 0, 3] -= camera.get("baseline_times_fx", 0.0) / camera["fx"]
     for i0 in range(0, n, RENDER_BATCH):
         sl = slice(i0, min(i0 + RENDER_BATCH, n))
-        images[sl] = render(planes, Tcw[sl], rays).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        img, lam = render(planes, Tcw[sl], rays, with_depth=True)
+        images[sl] = img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+        if depths is not None:
+            depths[sl] = torch.where(torch.isfinite(lam), lam, 0.0).cpu().numpy()
+        if right is not None:
+            right[sl] = render(planes, Tcw_r[sl], rays).clamp(0, 255).to(torch.uint8).cpu().numpy()
     blank_value = (spec.get("kidnap") or {}).get("blank_value", 128)
     images[blank] = blank_value
+    if right is not None:
+        right[blank] = blank_value
+    if depths is not None:
+        depths[blank] = 0.0
     return Traffic(images=images, gt_Twc=Twc, blank=blank,
                    timestamps=np.arange(n) / float(camera.get("fps", 30.0)),
                    warmup_keyframes=spec["warmup_keyframes"],
-                   min_warmup_frames=spec.get("min_warmup_frames", 0))
+                   min_warmup_frames=spec.get("min_warmup_frames", 0),
+                   texture_bytes=sum(p.texture.numel() * p.texture.element_size() for p in planes),
+                   right_images=right, depths=depths)
